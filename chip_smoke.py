@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port (vits_torch) runs on one NVIDIA
+card: builds the CUDA kernels from vits_torch/csrc, holds each against its
+plain PyTorch version, drives the generator's training forward and serving
+path at the full width and depth of configs/config_cje.yaml with random
+weights from a seed, and checks the card against the CPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure ends the script with a non-zero exit; nothing falls back
+to the CPU):
+  1. build     nvcc for sm_90a, one process per source, all started together
+  2. kernels   MAS forward + backtrack against the plain version, exact, at
+               the test shapes and the main-path shapes; times and bounds
+  3. forward   SynthesizerTrn.forward, B=16 x T_y=400, text 129-191 ids,
+               features made by the port's spectrogram and Yingram from a
+               synthetic waveform; the MAS launch counts must rise
+  4. infer     SynthesizerTrn.infer at batch 1 and 8, max_frames=1000
+  5. card-cpu  the tiny test configuration's forward on the card and on the
+               CPU with the same weights and noise, TF32 off
+
+The line before the last is a JSON object with one entry per kernel; the last
+line is {"ok": true, "device": {...}}. Every number printed carries the card's
+name and power limit. Needs a CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+MAIN_B, MAIN_T_Y, MAIN_T_X = 16, 400, 191
+CHECK_CASES = [(4, 37, 11), (2, 64, 48), (8, 150, 130), (3, 40, 40), (32, 800, 384)]
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of fn() over iters launches, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=10) -> tuple[float, float, float]:
+    """(median, min, max) wall ms of fn() + synchronize over iters runs,
+    after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), min(times), max(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mas_case(b, t_y, t_x, seed, t_ys=None, t_xs=None):
+    """Random scores with lengths t_y >= t_x (drawn unless given), on the card."""
+    rng = np.random.default_rng(seed)
+    neg = rng.standard_normal((b, t_y, t_x)).astype(np.float32)
+    if t_ys is None:
+        t_xs = rng.integers(2, t_x + 1, size=b)
+        t_ys = np.maximum(rng.integers(t_x, t_y + 1, size=b), t_xs)
+    mask = (
+        (np.arange(t_y)[None, :, None] < np.asarray(t_ys)[:, None, None])
+        & (np.arange(t_x)[None, None, :] < np.asarray(t_xs)[:, None, None])
+    ).astype(np.float32)
+    dev = torch.device("cuda")
+    return (
+        torch.from_numpy(neg).to(dev),
+        torch.from_numpy(mask).to(dev),
+        torch.as_tensor(np.asarray(t_ys), dtype=torch.int32, device=dev),
+        torch.as_tensor(np.asarray(t_xs), dtype=torch.int32, device=dev),
+    )
+
+
+def check_mas(card: str, main_lengths) -> dict:
+    """Phase 2: every MAS kernel against its plain version, exact; times."""
+    from vits_torch.ops import mas, mas_cuda
+
+    err = {"mas_forward": 0.0, "mas_backtrack": 0.0}
+    # t_y == t_x is the diagonal case: full lengths force the identity path
+    cases = [(b, ty, tx, *(([ty] * b, [tx] * b) if ty == tx else (None, None)))
+             for b, ty, tx in CHECK_CASES]
+    cases.append((MAIN_B, MAIN_T_Y, MAIN_T_X, *main_lengths))
+    for i, (b, t_y, t_x, t_ys, t_xs) in enumerate(cases):
+        neg, mask, ty, tx = mas_case(b, t_y, t_x, 100 + i, t_ys, t_xs)
+        dec_plain = mas.mas_decisions(neg, mask)
+        dec = mas_cuda.mas_forward(neg, ty, tx)
+        inside = mask.bool()
+        e_f = (dec[inside].float() - dec_plain[inside].float()).abs().max().item()
+        path = mas_cuda.mas_backtrack(dec_plain, ty, tx)
+        e_b = (path - mas.mas_backtrack(dec_plain, ty, tx)).abs().max().item()
+        full = mas.maximum_path(neg, mask)
+        e_p = (full - mas.maximum_path_torch(neg, mask)).abs().max().item()
+        torch.cuda.synchronize()
+        if t_y == t_x and not torch.equal(full[0].cpu(), torch.eye(t_y)):
+            raise AssertionError("MAS: t_y == t_x must give the identity path")
+        print(f"{card} | mas check B={b} T_y={t_y} T_x={t_x}: forward max|err|={e_f} "
+              f"backtrack max|err|={e_b} maximum_path max|err|={e_p}")
+        if e_f or e_b or e_p:
+            raise AssertionError("MAS kernel disagrees with the plain version")
+        err["mas_forward"] = max(err["mas_forward"], e_f)
+        err["mas_backtrack"] = max(err["mas_backtrack"], e_b)
+
+    rows = {}
+    for label, (b, t_y, t_x, t_ys, t_xs) in (("main", cases[-1]), ("large", cases[-2])):
+        neg, mask, ty, tx = mas_case(b, t_y, t_x, 7, t_ys, t_xs)
+        cells = float((ty.double() * tx.double()).sum())
+        dec = mas_cuda.mas_forward(neg, ty, tx)
+        fw_ms = cuda_ms(lambda: mas_cuda.mas_forward(neg, ty, tx))
+        bt_ms = cuda_ms(lambda: mas_cuda.mas_backtrack(dec, ty, tx))
+        fw_plain = cuda_ms(lambda: mas.mas_decisions(neg, mask), iters=3, warmup=1)
+        dec_plain = mas.mas_decisions(neg, mask)
+        bt_plain = cuda_ms(lambda: mas.mas_backtrack(dec_plain, ty, tx), iters=3, warmup=1)
+        # forward: read the scores inside the rectangles (4 B), write one
+        # decision byte each; add, max and compare a cell
+        fw_bound = bound_ms(5 * cells, 3 * cells)
+        # backtrack: one decision a row, write the whole f32 path
+        bt_bound = bound_ms(float(ty.sum()) + 4.0 * b * t_y * t_x, float(ty.sum()))
+        whole_ms = cuda_ms(lambda: mas.maximum_path(neg, mask))
+        whole_bound = bound_ms(4 * cells + 4.0 * b * t_y * t_x, 3 * cells)
+        print(f"{card} | mas {label} B={b} T_y={t_y} T_x={t_x}: "
+              f"forward {fw_ms:.4f} ms (plain {fw_plain:.3f} ms, bound {fw_bound[0]:.5f} ms "
+              f"by {fw_bound[1]}); backtrack {bt_ms:.4f} ms (plain {bt_plain:.3f} ms, "
+              f"bound {bt_bound[0]:.5f} ms by {bt_bound[1]}); maximum_path "
+              f"{whole_ms:.4f} ms (bound {whole_bound[0]:.5f} ms: {(4 * cells + 4.0 * b * t_y * t_x) / 1e6:.1f} MB)")
+        rows[label] = dict(fw=(fw_ms, fw_plain, fw_bound), bt=(bt_ms, bt_plain, bt_bound))
+    print(f"{card} | mas note: the serial chain of T_y rows (one barrier each), not "
+          f"bytes, holds these kernels back")
+    return {"err": err, "main": rows["main"]}
+
+
+def synthetic_batch(hps, rng, dev):
+    """B=16 utterances of 300-400 frames with 129-191 symbols, their linear
+    spectrograms and yingrams computed on the card by the port."""
+    from vits_torch.ops.stft import spectrogram
+    from vits_torch.ops.yin import Yingram
+    from vits_torch.text.symbols import symbols
+
+    d = hps.data
+    hop = d.hop_length
+    y_lengths = rng.integers(300, MAIN_T_Y + 1, size=MAIN_B)
+    y_lengths[0] = MAIN_T_Y
+    x_lengths = rng.integers(129, MAIN_T_X + 1, size=MAIN_B)
+    x_lengths[0] = MAIN_T_X
+    n = np.arange(MAIN_T_Y * hop)
+    f0 = rng.uniform(90, 300, size=(MAIN_B, 1))
+    wav = (0.4 * np.sin(2 * np.pi * f0 * n / d.sampling_rate)
+           + 0.2 * np.sin(4 * np.pi * f0 * n / d.sampling_rate)
+           + 0.02 * rng.standard_normal((MAIN_B, n.size)))
+    wav *= n[None, :] < (y_lengths[:, None] * hop)
+    wav = torch.from_numpy(wav.astype(np.float32)).to(dev)
+    spec = spectrogram(wav, d.filter_length, hop, d.win_length)
+    left = d.filter_length - hop
+    right = left + (-wav.shape[1]) % hop + hop * (wav.shape[1] % hop == 0)
+    yingram = Yingram(d.sampling_rate, hop, d.ying_window, d.tau_max, d.midi_start,
+                      d.midi_end, d.octave_range)
+    ying = yingram(torch.nn.functional.pad(wav, (left, right)))
+    if spec.shape != (MAIN_B, MAIN_T_Y, d.filter_length // 2 + 1) or ying.shape != (
+        MAIN_B, MAIN_T_Y, d.midis
+    ):
+        raise AssertionError(f"features: spec {tuple(spec.shape)}, yingram {tuple(ying.shape)}")
+    x = torch.from_numpy(rng.integers(1, len(symbols), (MAIN_B, MAIN_T_X))).to(dev)
+    t = torch.from_numpy(rng.integers(0, 6, (MAIN_B, MAIN_T_X))).to(dev)
+    sid = torch.from_numpy(rng.integers(0, len(d.speakers), MAIN_B)).to(dev)
+    return dict(
+        x=x, t=t, x_lengths=torch.from_numpy(x_lengths).to(dev), y=spec,
+        y_lengths=torch.from_numpy(y_lengths).to(dev), ying=ying, sid=sid,
+    )
+
+
+def check_forward(card, model, batch, gen, hps):
+    """Phase 3: the full-width training forward (the main path)."""
+    from vits_torch.ops import mas_cuda
+
+    b = batch
+
+    def run():
+        return model(b["x"], b["t"], b["x_lengths"], b["y"], b["y_lengths"], b["ying"],
+                     b["sid"], generator=gen)
+
+    model.train()
+    with torch.no_grad():
+        for k in mas_cuda.launches:
+            mas_cuda.launches[k] = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = dict(mas_cuda.launches)
+        ms = host_ms(run)
+    print(f"{card} | forward launches on the main path: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError("the training forward did not launch every MAS kernel")
+    seg = hps.train.segment_size
+    inter, two_b = hps.model.inter_channels, 2 * MAIN_B
+    shapes = {
+        "attn": (MAIN_B, MAIN_T_Y, MAIN_T_X), "z_p": (MAIN_B, MAIN_T_Y, inter),
+        "m_p": (MAIN_B, MAIN_T_Y, inter), "l_length": (MAIN_B,), "ids_slice": (two_b,),
+        "yin_hat_crop": (two_b, seg // hps.data.hop_length, hps.model.yin_scope),
+    }
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape:
+            raise AssertionError(f"forward[{k}] has shape {tuple(out[k].shape)}, want {shape}")
+    if [tuple(w.shape) for w in out["wav_hier"]] != [(two_b, seg // 4, 1), (two_b, seg // 2, 1), (two_b, seg, 1)]:
+        raise AssertionError("wav_hier shapes")
+    for k, v in out.items():
+        for a in v if isinstance(v, list) else [v]:
+            if a.is_floating_point() and not torch.isfinite(a).all():
+                raise AssertionError(f"forward[{k}] is not finite")
+    attn = out["attn"]
+    if not torch.equal(attn.sum(dim=(1, 2)).long(), b["y_lengths"].long()):
+        raise AssertionError("attn does not cover each frame once")
+    if not torch.equal(attn.sum(dim=2)[:, :, None], out["z_mask"]):
+        raise AssertionError("attn must give each valid frame exactly one symbol")
+    print(f"{card} | forward B={MAIN_B} T_y={MAIN_T_Y} T_x={MAIN_T_X} full CJE width: "
+          f"median {ms[0]:.2f} ms (min {ms[1]:.2f}, max {ms[2]:.2f}, n=10; host clock, "
+          f"synchronized, no_grad, train mode, TF32 convolutions as PyTorch defaults)")
+    return launches, ms
+
+
+def check_infer(card, model, hps, rng, gen):
+    """Phase 4: serving at batch 1 and 8, max_frames=1000."""
+    from vits_torch.ops import mas_cuda
+    from vits_torch.text.symbols import symbols
+
+    dev = model.device
+    hop, sr = hps.data.hop_length, hps.data.sampling_rate
+    model.eval()
+    results = {}
+    for bsz in (1, 8):
+        t_x = MAIN_T_X
+        x_lengths = np.full(bsz, t_x) if bsz == 1 else rng.integers(129, t_x + 1, size=bsz)
+        x = torch.from_numpy(rng.integers(1, len(symbols), (bsz, t_x))).to(dev)
+        t = torch.from_numpy(rng.integers(0, 6, (bsz, t_x))).to(dev)
+        sid = torch.from_numpy(rng.integers(0, len(hps.data.speakers), bsz)).to(dev)
+        xl = torch.from_numpy(x_lengths).to(dev)
+        for k in mas_cuda.launches:
+            mas_cuda.launches[k] = 0
+        with torch.no_grad():
+            wav, y_mask, y_lengths = model.infer(x, t, xl, sid, generator=gen, max_frames=1000)
+            torch.cuda.synchronize()
+            launches = dict(mas_cuda.launches)
+            ms = host_ms(lambda: model.infer(x, t, xl, sid, generator=gen, max_frames=1000))
+        if tuple(wav.shape) != (bsz, 1000 * hop, 1) or not torch.isfinite(wav).all():
+            raise AssertionError(f"infer batch {bsz}: wav {tuple(wav.shape)} or not finite")
+        audio_s = float(y_lengths.sum()) * hop / sr
+        print(f"{card} | infer batch {bsz} max_frames=1000: median {ms[0]:.2f} ms "
+              f"(min {ms[1]:.2f}, max {ms[2]:.2f}, n=10), {audio_s:.2f} s of audio "
+              f"(sum of y_lengths), real-time factor {ms[0] / 1e3 / audio_s:.5f}; "
+              f"MAS launches {launches}")
+        results[bsz] = ms
+    return results
+
+
+def check_card_against_cpu(card, seed):
+    """Phase 5: tiny configuration, same weights and noise, card vs CPU."""
+    from vits_torch.models.synthesizer import SynthesizerTrn
+
+    tiny = dict(
+        num_chars=30, spec_channels=513, segment_size=2048, midi_start=-5, midi_end=75,
+        octave_range=24, inter_channels=96, hidden_channels=96, filter_channels=128,
+        n_heads=2, n_layers=1, kernel_size=3, p_dropout=0.0, resblock="1",
+        resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]],
+        upsample_rates=[8, 8, 2, 2], upsample_initial_channel=64,
+        upsample_kernel_sizes=[16, 16, 4, 4], yin_channels=80, yin_start=15,
+        yin_scope=50, yin_shift_range=15, n_speakers=3, gin_channels=16,
+        posterior_layers=2, flow_n_flows=2, flow_wn_layers=1, dur_n_flows=1,
+        yin_dec_layers=2,
+    )
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(seed)
+    cpu = SynthesizerTrn(**tiny, device="cpu").eval()
+    gpu = SynthesizerTrn(**tiny, device="cuda").eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed)
+    b, t_x, t_y = 2, 11, 24
+    inputs = [
+        rng.integers(1, 30, (b, t_x)), rng.integers(0, 6, (b, t_x)), np.array([t_x, t_x - 3]),
+        np.abs(rng.standard_normal((b, t_y, 513))).astype(np.float32),
+        np.array([t_y, t_y - 5]), rng.uniform(0, 1, (b, t_y, 80)).astype(np.float32),
+        np.array([0, 2]),
+    ]
+    noise = {
+        "eps_spec": rng.standard_normal((b, t_y, 16)).astype(np.float32),
+        "eps_yin": rng.standard_normal((b, t_y, 80)).astype(np.float32),
+        "scope_shift": rng.integers(-15, 15, b).astype(np.int32),
+        "e_q": rng.standard_normal((b, t_x, 2)).astype(np.float32),
+        "slice_u": rng.uniform(0, 1, b).astype(np.float32),
+    }
+    with torch.no_grad():
+        ref = cpu(*(torch.from_numpy(a) for a in inputs), noise=noise)
+        out = gpu(*(torch.from_numpy(a).cuda() for a in inputs), noise=noise)
+    # f32 on both; cuDNN and the CPU sum convolutions in other orders
+    tol = dict(rtol=1e-4, atol=1e-4)
+    worst = 0.0
+    for k, r in ref.items():
+        for ra, oa in zip(r if isinstance(r, list) else [r], out[k] if isinstance(r, list) else [out[k]]):
+            oa = oa.cpu()
+            if k in ("attn", "ids_slice", "scope_shift", "x_mask", "z_mask"):
+                if not torch.equal(oa, ra):
+                    raise AssertionError(f"card vs CPU: {k} differs")
+                continue
+            torch.testing.assert_close(oa, ra, **tol, msg=lambda m, k=k: f"card vs CPU {k}: {m}")
+            worst = max(worst, (oa - ra).abs().max().item())
+    print(f"{card} | card vs CPU, tiny config, TF32 off: attn exact, other keys max|err|="
+          f"{worst:.3e} (tolerance rtol 1e-4, atol 1e-4)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
+        return 2
+
+    from vits_torch import _build
+    from vits_torch.config import load_hparams
+    from vits_torch.models.synthesizer import build_synthesizer
+
+    card = card_line()
+    print(card)
+    print(f"{card} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    per_source = _build.build(sources)
+    print(f"{card} | build {sources}: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})")
+
+    hps = load_hparams(str(ROOT / "configs" / "config_cje.yaml"))
+    rng = np.random.default_rng(args.seed)
+    dev = torch.device("cuda")
+    batch = synthetic_batch(hps, rng, dev)
+    lengths = (batch["y_lengths"].cpu().numpy(), batch["x_lengths"].cpu().numpy())
+    mas_rows = check_mas(card, lengths)
+
+    torch.manual_seed(args.seed)
+    model = build_synthesizer(hps)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{card} | generator: {n_params} parameters, configs/config_cje.yaml")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    launches, _ = check_forward(card, model, batch, gen, hps)
+    check_infer(card, model, hps, rng, gen)
+    check_card_against_cpu(card, args.seed)
+
+    kernels = []
+    for name, line, key in (("mas_forward", 36, "fw"), ("mas_backtrack", 57, "bt")):
+        ms, plain_ms, (b_ms, b_by) = mas_rows["main"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "vits_torch/csrc/mas.cu",
+            "replaces": f"vits_tpu/ops/mas_pallas.py:{line}", "launches": launches[name],
+            "max_abs_err": mas_rows["err"][name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
