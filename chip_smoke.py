@@ -10,11 +10,17 @@ weights from a seed, and checks the card against the CPU.
 Phases (any failure ends the script with a non-zero exit; nothing falls back
 to the CPU):
   1. build     nvcc for sm_90a, one process per source, all started together
-  2. kernels   MAS forward + backtrack against the plain version, exact, at
-               the test shapes and the main-path shapes; times and bounds
+  2. kernels   the fused MAS kernel (the main path's) and the first port's
+               forward + backtrack pair against the plain version, exact, at
+               the test shapes, the edge cases (t_y < t_x, t_x = 1,
+               zero-length items, t_y == t_x with partial lengths), the
+               main-path shape and the largest bucket (64, 1500, 384); the
+               fused kernel and the pair timed in turns (pair, fused, fused,
+               pair) with their bounds
   3. forward   SynthesizerTrn.forward, B=16 x T_y=400, text 129-191 ids,
                features made by the port's spectrogram and Yingram from a
-               synthetic waveform; the MAS launch counts must rise
+               synthetic waveform; it must launch mas_fused once and the
+               pair never
   4. infer     SynthesizerTrn.infer at batch 1 and 8, max_frames=1000
   5. card-cpu  the tiny test configuration's forward on the card and on the
                CPU with the same weights and noise, TF32 off
@@ -44,7 +50,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 MAIN_B, MAIN_T_Y, MAIN_T_X = 16, 400, 191
-CHECK_CASES = [(4, 37, 11), (2, 64, 48), (8, 150, 130), (3, 40, 40), (32, 800, 384)]
+CHECK_CASES = [(4, 37, 11), (2, 64, 48), (8, 150, 130), (3, 40, 40), (32, 800, 384),
+               (64, 1500, 384)]
+# (B, T_y, T_x, t_ys, t_xs): t_y < t_x, t_x = 1, zero-length items, square
+# with partial lengths
+EDGE_CASES = [
+    (3, 20, 30, [12, 20, 5], [30, 25, 17]),
+    (3, 40, 1, [40, 7, 1], [1, 1, 1]),
+    (4, 30, 12, [30, 0, 18, 0], [0, 12, 9, 0]),
+    (3, 40, 40, [40, 33, 25], [40, 33, 17]),
+]
 
 
 def card_line() -> str:
@@ -112,56 +127,80 @@ def check_mas(card: str, main_lengths) -> dict:
     """Phase 2: every MAS kernel against its plain version, exact; times."""
     from vits_torch.ops import mas, mas_cuda
 
-    err = {"mas_forward": 0.0, "mas_backtrack": 0.0}
+    err = {"mas_fused": 0.0, "mas_forward": 0.0, "mas_backtrack": 0.0}
     # t_y == t_x is the diagonal case: full lengths force the identity path
     cases = [(b, ty, tx, *(([ty] * b, [tx] * b) if ty == tx else (None, None)))
              for b, ty, tx in CHECK_CASES]
+    cases += EDGE_CASES
     cases.append((MAIN_B, MAIN_T_Y, MAIN_T_X, *main_lengths))
     for i, (b, t_y, t_x, t_ys, t_xs) in enumerate(cases):
         neg, mask, ty, tx = mas_case(b, t_y, t_x, 100 + i, t_ys, t_xs)
+        ref = mas.maximum_path_torch(neg, mask)
+        e_u = (mas_cuda.mas_fused(neg, mask) - ref).abs().max().item()
+        full = mas.maximum_path(neg, mask)
+        e_p = (full - ref).abs().max().item()
         dec_plain = mas.mas_decisions(neg, mask)
         dec = mas_cuda.mas_forward(neg, ty, tx)
         inside = mask.bool()
         e_f = (dec[inside].float() - dec_plain[inside].float()).abs().max().item()
         path = mas_cuda.mas_backtrack(dec_plain, ty, tx)
         e_b = (path - mas.mas_backtrack(dec_plain, ty, tx)).abs().max().item()
-        full = mas.maximum_path(neg, mask)
-        e_p = (full - mas.maximum_path_torch(neg, mask)).abs().max().item()
         torch.cuda.synchronize()
-        if t_y == t_x and not torch.equal(full[0].cpu(), torch.eye(t_y)):
+        if t_ys is not None and t_y == t_x and t_ys[0] == t_y and t_xs[0] == t_x \
+                and not torch.equal(full[0].cpu(), torch.eye(t_y)):
             raise AssertionError("MAS: t_y == t_x must give the identity path")
-        print(f"{card} | mas check B={b} T_y={t_y} T_x={t_x}: forward max|err|={e_f} "
-              f"backtrack max|err|={e_b} maximum_path max|err|={e_p}")
-        if e_f or e_b or e_p:
+        print(f"{card} | mas check B={b} T_y={t_y} T_x={t_x}: fused max|err|={e_u} "
+              f"maximum_path max|err|={e_p} forward max|err|={e_f} backtrack max|err|={e_b}")
+        if e_u or e_p or e_f or e_b:
             raise AssertionError("MAS kernel disagrees with the plain version")
-        err["mas_forward"] = max(err["mas_forward"], e_f)
-        err["mas_backtrack"] = max(err["mas_backtrack"], e_b)
+        for k, e in (("mas_fused", max(e_u, e_p)), ("mas_forward", e_f), ("mas_backtrack", e_b)):
+            err[k] = max(err[k], e)
 
     rows = {}
-    for label, (b, t_y, t_x, t_ys, t_xs) in (("main", cases[-1]), ("large", cases[-2])):
+    shapes = (("main", cases[-1]), ("large", cases[4]), ("largest", cases[5]))
+    for label, (b, t_y, t_x, t_ys, t_xs) in shapes:
         neg, mask, ty, tx = mas_case(b, t_y, t_x, 7, t_ys, t_xs)
         cells = float((ty.double() * tx.double()).sum())
+        path_bytes = 4.0 * b * t_y * t_x
+
+        def pair():
+            return mas_cuda.mas_backtrack(mas_cuda.mas_forward(neg, ty, tx), ty, tx)
+
+        def fused():
+            return mas_cuda.mas_fused(neg, mask)
+
+        turns = [cuda_ms(pair), cuda_ms(fused), cuda_ms(fused), cuda_ms(pair)]
+        pair_ms, fused_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         dec = mas_cuda.mas_forward(neg, ty, tx)
         fw_ms = cuda_ms(lambda: mas_cuda.mas_forward(neg, ty, tx))
         bt_ms = cuda_ms(lambda: mas_cuda.mas_backtrack(dec, ty, tx))
+        whole_ms = cuda_ms(lambda: mas.maximum_path(neg, mask))
         fw_plain = cuda_ms(lambda: mas.mas_decisions(neg, mask), iters=3, warmup=1)
         dec_plain = mas.mas_decisions(neg, mask)
         bt_plain = cuda_ms(lambda: mas.mas_backtrack(dec_plain, ty, tx), iters=3, warmup=1)
+        fused_plain = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=3, warmup=1)
+        # fused: read the scores inside the rectangles and the mask's first
+        # column and row, write the whole f32 path; add, max and compare a cell
+        fused_bound = bound_ms(4 * cells + 4.0 * b * (t_y + t_x) + path_bytes, 3 * cells)
         # forward: read the scores inside the rectangles (4 B), write one
         # decision byte each; add, max and compare a cell
         fw_bound = bound_ms(5 * cells, 3 * cells)
         # backtrack: one decision a row, write the whole f32 path
-        bt_bound = bound_ms(float(ty.sum()) + 4.0 * b * t_y * t_x, float(ty.sum()))
-        whole_ms = cuda_ms(lambda: mas.maximum_path(neg, mask))
-        whole_bound = bound_ms(4 * cells + 4.0 * b * t_y * t_x, 3 * cells)
-        print(f"{card} | mas {label} B={b} T_y={t_y} T_x={t_x}: "
-              f"forward {fw_ms:.4f} ms (plain {fw_plain:.3f} ms, bound {fw_bound[0]:.5f} ms "
-              f"by {fw_bound[1]}); backtrack {bt_ms:.4f} ms (plain {bt_plain:.3f} ms, "
-              f"bound {bt_bound[0]:.5f} ms by {bt_bound[1]}); maximum_path "
-              f"{whole_ms:.4f} ms (bound {whole_bound[0]:.5f} ms: {(4 * cells + 4.0 * b * t_y * t_x) / 1e6:.1f} MB)")
-        rows[label] = dict(fw=(fw_ms, fw_plain, fw_bound), bt=(bt_ms, bt_plain, bt_bound))
-    print(f"{card} | mas note: the serial chain of T_y rows (one barrier each), not "
-          f"bytes, holds these kernels back")
+        bt_bound = bound_ms(float(ty.sum()) + path_bytes, float(ty.sum()))
+        print(f"{card} | mas {label} B={b} T_y={t_y} T_x={t_x}: in turns pair {turns[0]:.4f}, "
+              f"fused {turns[1]:.4f}, fused {turns[2]:.4f}, pair {turns[3]:.4f} ms; fused "
+              f"{fused_ms:.4f} ms against pair {pair_ms:.4f} ms ({pair_ms / fused_ms:.2f}x), "
+              f"bound {fused_bound[0]:.5f} ms by {fused_bound[1]} "
+              f"({(4 * cells + 4.0 * b * (t_y + t_x) + path_bytes) / 1e6:.1f} MB), plain "
+              f"{fused_plain:.3f} ms; maximum_path {whole_ms:.4f} ms; forward {fw_ms:.4f} ms "
+              f"(plain {fw_plain:.3f} ms, bound {fw_bound[0]:.5f} ms by {fw_bound[1]}); backtrack "
+              f"{bt_ms:.4f} ms (plain {bt_plain:.3f} ms, bound {bt_bound[0]:.5f} ms by {bt_bound[1]})")
+        if fused_ms >= pair_ms:
+            raise AssertionError(f"mas {label}: the fused kernel is not faster than the pair")
+        rows[label] = dict(fused=(fused_ms, fused_plain, fused_bound), fw=(fw_ms, fw_plain, fw_bound),
+                           bt=(bt_ms, bt_plain, bt_bound))
+    print(f"{card} | mas note: the fused kernel's time is its serial chain of t_y DP row "
+          f"steps and t_y walk steps on one warp an item, not bytes")
     return {"err": err, "main": rows["main"]}
 
 
@@ -223,8 +262,8 @@ def check_forward(card, model, batch, gen, hps):
         launches = dict(mas_cuda.launches)
         ms = host_ms(run)
     print(f"{card} | forward launches on the main path: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError("the training forward did not launch every MAS kernel")
+    if launches != {"mas_fused": 1, "mas_forward": 0, "mas_backtrack": 0}:
+        raise AssertionError("the training forward must launch mas_fused once and the pair never")
     seg = hps.train.segment_size
     inter, two_b = hps.model.inter_channels, 2 * MAIN_B
     shapes = {
@@ -381,7 +420,9 @@ def main() -> int:
     check_card_against_cpu(card, args.seed)
 
     kernels = []
-    for name, line, key in (("mas_forward", 36, "fw"), ("mas_backtrack", 57, "bt")):
+    # mas_fused replaces both Pallas kernels; the pair is off the main path
+    for name, line, key in (("mas_fused", 36, "fused"), ("mas_forward", 36, "fw"),
+                            ("mas_backtrack", 57, "bt")):
         ms, plain_ms, (b_ms, b_by) = mas_rows["main"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": "vits_torch/csrc/mas.cu",
@@ -389,6 +430,7 @@ def main() -> int:
             "max_abs_err": mas_rows["err"][name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+    kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

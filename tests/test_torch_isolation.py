@@ -21,6 +21,7 @@ def _port_sources():
     return sorted((ROOT / "vits_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py",
         ROOT / "tools" / "profile_torch_slice.py",
+        ROOT / "tools" / "probe_mas_fused.py",
     ]
 
 

@@ -12,10 +12,12 @@ Algorithm (per sample, value lattice [T_y frames, T_x text]):
 Two implementations with the JAX package's layout ([B, T_y, T_x]):
   * the plain PyTorch version here (``mas_decisions`` + ``mas_backtrack``),
     a row loop that repeats the JAX ``maximum_path_scan`` arithmetic;
-  * the CUDA kernels in ``vits_torch/csrc/mas.cu`` (``ops/mas_cuda.py``).
+  * the CUDA kernels in ``vits_torch/csrc/mas.cu`` (``ops/mas_cuda.py``):
+    ``mas_fused``, one launch for the whole search, and the first port's
+    pair ``mas_forward`` + ``mas_backtrack``, which no path runs.
 
 ``maximum_path`` takes the plain version only for a CPU tensor; a CUDA tensor
-launches the kernels or raises. There is no fallback between them.
+launches ``mas_fused`` or raises. There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def mas_backtrack(
     idx = torch.zeros((b,), dtype=torch.long, device=dec.device)
     for y in range(t_y - 1, -1, -1):
         idx = torch.where(t_ys - 1 == y, t_xs - 1, idx)
-        active = t_ys > y
+        active = (t_ys > y) & (t_xs > 0)  # no columns: no walk, as in the kernel
         path[rows, y, idx] = active.to(torch.float32)
         step = (idx == y) | dec[rows, y, idx].bool()
         idx = torch.where(active & (idx != 0) & step, idx - 1, idx)
@@ -74,10 +76,10 @@ def maximum_path_torch(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tens
 
 @torch.no_grad()
 def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """MAS: the CUDA kernels for a CUDA tensor, the plain version for a CPU
-    tensor. neg_cent, mask: [B, T_y, T_x] (frames x text) -> hard path."""
+    """MAS: the fused CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor. neg_cent, mask: [B, T_y, T_x] (frames x text) -> hard path."""
     if neg_cent.device.type == "cuda":
-        return mas_cuda.maximum_path_cuda(neg_cent, mask)
+        return mas_cuda.mas_fused(neg_cent, mask)
     if neg_cent.device.type == "cpu":
         return maximum_path_torch(neg_cent, mask)
     raise ValueError(f"maximum_path: no implementation on {neg_cent.device}")
