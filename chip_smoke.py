@@ -22,8 +22,17 @@ to the CPU):
                synthetic waveform; it must launch mas_fused once and the
                pair never
   4. infer     SynthesizerTrn.infer at batch 1 and 8, max_frames=1000
-  5. card-cpu  the tiny test configuration's forward on the card and on the
-               CPU with the same weights and noise, TF32 off
+  5. train     training/step.py::train_step at full width: the CJE generator
+               and the flagship Avocodo discriminator, B=16 x 400 frames with
+               their waveform, segment 8192, once under the config's bf16
+               policy and once in f32: 2 warm-up steps, then 10 timed ones;
+               losses at the first and last step, parameters moved, peak
+               memory, and exactly one mas_fused launch a step
+  6. card-cpu  the tiny test configuration's forward and one train step
+               (probe discriminator) on the card and on the CPU with the same
+               weights, noise and PhaseAug rotations, TF32 off, cuDNN
+               deterministic, dropout off: every metric, gradient and updated
+               parameter held to the CPU's; attn and ids_slice exact
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Every number printed carries the card's
@@ -205,8 +214,9 @@ def check_mas(card: str, main_lengths) -> dict:
 
 
 def synthetic_batch(hps, rng, dev):
-    """B=16 utterances of 300-400 frames with 129-191 symbols, their linear
-    spectrograms and yingrams computed on the card by the port."""
+    """B=16 utterances of 300-400 frames with 129-191 symbols, their
+    waveforms [B, 400 * hop, 1] and the linear spectrograms and yingrams the
+    port computes from them on the card."""
     from vits_torch.ops.stft import spectrogram
     from vits_torch.ops.yin import Yingram
     from vits_torch.text.symbols import symbols
@@ -239,7 +249,7 @@ def synthetic_batch(hps, rng, dev):
     sid = torch.from_numpy(rng.integers(0, len(d.speakers), MAIN_B)).to(dev)
     return dict(
         x=x, t=t, x_lengths=torch.from_numpy(x_lengths).to(dev), y=spec,
-        y_lengths=torch.from_numpy(y_lengths).to(dev), ying=ying, sid=sid,
+        y_lengths=torch.from_numpy(y_lengths).to(dev), ying=ying, sid=sid, wav=wav[:, :, None],
     )
 
 
@@ -380,6 +390,186 @@ def check_card_against_cpu(card, seed):
           f"{worst:.3e} (tolerance rtol 1e-4, atol 1e-4)")
 
 
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+
+
+def check_train(card, hps, batch, seed, bf16):
+    """Phase 5: the full-width GAN train step (the main path), one precision."""
+    from vits_torch.models.avocodo import AvocodoDiscriminator
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops import mas_cuda
+    from vits_torch.training.step import create_train_state, train_step
+
+    label = "bf16" if bf16 else "f32"
+    torch.manual_seed(seed)
+    model = build_synthesizer(hps, bf16=bf16)
+    disc = AvocodoDiscriminator(bf16=bf16, segment_size=hps.train.segment_size)
+    # the schedule's epoch length does not matter within 12 steps
+    state = create_train_state(model, disc, hps, steps_per_epoch=100)
+    start = [p.detach().clone() for m in (model, disc) for p in m.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = batch
+    tb = dict(x=b["x"], t=b["t"], x_lengths=b["x_lengths"], spec=b["y"],
+              spec_lengths=b["y_lengths"], ying=b["ying"], wav=b["wav"], sid=b["sid"])
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, first = [], None
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    for i in range(n):
+        t0 = time.perf_counter()
+        metrics = train_step(state, tb, hps, generator=gen)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = {k: v.item() for k, v in metrics.items()}
+    launches = dict(mas_cuda.launches)
+    last = {k: v.item() for k, v in metrics.items()}
+    peak = torch.cuda.max_memory_allocated()
+    moved = [not torch.equal(a, p.detach())
+             for a, p in zip(start, (p for m in (model, disc) for p in m.parameters()))]
+    ms = (float(np.median(times)), min(times), max(times))
+    print(f"{card} | train step {label} B={MAIN_B} T_y={MAIN_T_Y} T_x={MAIN_T_X} segment "
+          f"{hps.train.segment_size}, CJE generator + flagship Avocodo: median {ms[0]:.2f} ms "
+          f"(min {ms[1]:.2f}, max {ms[2]:.2f}, n={TRAIN_TIMED} after {TRAIN_WARMUP} warm-up "
+          f"steps; host clock, synchronized; TF32 convolutions as PyTorch defaults); peak "
+          f"memory {peak / 2**30:.2f} GiB; launches in {n} steps {launches}")
+    for tag, m in (("first", first), ("last", last)):
+        print(f"{card} | train step {label} {tag} step: "
+              + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    print(f"{card} | train step {label}: {sum(moved)} of {len(moved)} parameter tensors moved")
+    if launches != {"mas_fused": n, "mas_forward": 0, "mas_backtrack": 0}:
+        raise AssertionError(f"train step {label}: mas_fused must launch once a step")
+    if not all(np.isfinite(v) for m in (first, last) for v in m.values()):
+        raise AssertionError(f"train step {label}: a loss is not finite")
+    if not all(moved):
+        raise AssertionError(f"train step {label}: {len(moved) - sum(moved)} tensors never moved")
+    del state, model, disc, start
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": launches, "launches_per_step": launches["mas_fused"] / n,
+            "peak_bytes": peak}
+
+
+# the tiny configuration of tests/test_train_step.py
+TINY_TRAIN = dict(
+    num_chars=30, spec_channels=513, segment_size=2048, midi_start=-5, midi_end=75,
+    octave_range=24, inter_channels=96, hidden_channels=64, filter_channels=96, n_heads=2,
+    n_layers=1, kernel_size=3, p_dropout=0.1, resblock="1", resblock_kernel_sizes=[3],
+    resblock_dilation_sizes=[[1, 3]], upsample_rates=[8, 8, 2, 2], upsample_initial_channel=32,
+    upsample_kernel_sizes=[16, 16, 4, 4], yin_channels=80, yin_start=15, yin_scope=50,
+    yin_shift_range=15, n_speakers=3, gin_channels=16, posterior_layers=2, flow_n_flows=1,
+    flow_wn_layers=1, dur_n_flows=1, yin_dec_layers=2,
+)
+
+
+def tiny_train_step_pair(seed, **train):
+    """One f32 train step at the tiny configuration with the probe
+    discriminator, on the CPU and on the card from the same weights, batch,
+    noise and PhaseAug rotations, dropout off (CPU and card draw other
+    masks), TF32 off, cuDNN deterministic; ``train`` overrides entries of
+    hps.train (loss weights). Returns (hps, (cpu, card) states, metrics,
+    generator outputs)."""
+    from vits_torch.config import HParams
+    from vits_torch.models.avocodo import probe_discriminator
+    from vits_torch.models.synthesizer import SynthesizerTrn
+    from vits_torch.ops.phaseaug import sample_phi
+    from vits_torch.training.step import create_train_state, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    hps = HParams(
+        train={**dict(learning_rate=2e-4, betas=[0.8, 0.99], eps=1e-9, lr_decay=0.999875,
+                      segment_size=2048, c_mel=45, c_kl=1.0, c_yin=45.0), **train},
+        data=dict(filter_length=1024, hop_length=256, win_length=1024, n_mel_channels=80,
+                  mel_fmin=0.0, mel_fmax=None, sampling_rate=22050),
+    )
+    rng = np.random.default_rng(seed)
+    b, t_x, t_y = 2, 9, 16
+    batch = {
+        "x": rng.integers(1, 30, (b, t_x)), "t": rng.integers(0, 6, (b, t_x)),
+        "x_lengths": np.full(b, t_x), "spec_lengths": np.full(b, t_y),
+        "spec": np.abs(rng.standard_normal((b, t_y, 513))).astype(np.float32),
+        "ying": rng.uniform(0, 1, (b, t_y, 80)).astype(np.float32),
+        "wav": (rng.standard_normal((b, t_y * 256, 1)) * 0.1).astype(np.float32),
+        "sid": rng.integers(0, 3, b),
+    }
+    gen = torch.Generator().manual_seed(seed)
+    noise = {
+        "eps_spec": rng.standard_normal((b, t_y, 16)).astype(np.float32),
+        "eps_yin": rng.standard_normal((b, t_y, 80)).astype(np.float32),
+        "scope_shift": rng.integers(-15, 15, b).astype(np.int32),
+        "e_q": rng.standard_normal((b, t_x, 2)).astype(np.float32),
+        "slice_u": rng.uniform(0, 1, b).astype(np.float32),
+        "phi_d": sample_phi(2 * b, gen).numpy(), "phi_g": sample_phi(2 * b, gen).numpy(),
+    }
+    states, outs, metrics = [], [], []
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(seed)
+        model = SynthesizerTrn(**TINY_TRAIN, device="cpu")
+        disc = probe_discriminator(segment_size=2048, device="cpu")
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        state = create_train_state(model.to(dev), disc.to(dev), hps, steps_per_epoch=10)
+        out = {}
+        hook = model.register_forward_hook(lambda m, a, o, out=out: out.update(o))
+        metrics.append({k: v.cpu() for k, v in train_step(state, batch, hps, noise=noise).items()})
+        hook.remove()
+        states.append(state)
+        outs.append(out)
+    return hps, states, metrics, outs
+
+
+def check_train_card_against_cpu(card, seed):
+    """Phase 6, second half: one f32 train step at the tiny configuration
+    with the probe discriminator, card against CPU."""
+    hps, states, metrics, outs = tiny_train_step_pair(seed)
+    (s_cpu, s_gpu), (m_cpu, m_gpu) = states, metrics
+    for k in ("attn", "ids_slice"):
+        if not torch.equal(outs[1][k].cpu(), outs[0][k]):
+            raise AssertionError(f"train step card vs CPU: {k} differs")
+    errs = {k: abs(m_gpu[k].item() - m_cpu[k].item()) for k in m_cpu}
+    bad = [k for k in m_cpu if errs[k] > 1e-4 * abs(m_cpu[k].item()) + 1e-6]
+    lr = hps.train.learning_rate
+    worst_grad, worst_param = {}, 0.0
+    for side in ("model", "disc"):
+        total = m_cpu[f"grad_norm/{'g' if side == 'model' else 'd'}"].item()
+        for (k, p_cpu), p_gpu in zip(getattr(s_cpu, side).named_parameters(),
+                                     getattr(s_gpu, side).parameters()):
+            g_err = (p_gpu.grad.cpu() - p_cpu.grad).norm().item()
+            g_ref = p_cpu.grad.norm().item()
+            # the decoder's gradients carry the yin losses through the Yingram
+            # of the generated audio: an f32 FFT autocorrelation (cuFFT against
+            # pocketfft) and cMNDF divisions by running sums, whose gradient
+            # through exp(-yin) amplifies the summation order: 1.7e-3 of a
+            # tensor's norm with the yin losses, 1e-4 without them
+            # (tools/probe_step_grads.py)
+            group = "decoder" if k.startswith("waveform_decoder.") else "rest"
+            rel = 1e-2 if group == "decoder" else 1e-3
+            if g_err > 1e-6 * total:
+                worst_grad[group] = max(worst_grad.get(group, 0.0), g_err / g_ref)
+            if g_err > rel * g_ref + 1e-6 * total:
+                bad.append(f"grad {side}.{k}")
+            p_err = (p_gpu.detach().cpu() - p_cpu.detach()).abs().max().item()
+            worst_param = max(worst_param, p_err)
+            if p_err > 2.01 * lr:  # Adam's first step: +-lr where a gradient is ~0
+                bad.append(f"param {side}.{k}")
+    print(f"{card} | train step card vs CPU, tiny config + probe D, f32, TF32 off, cuDNN "
+          f"deterministic: attn and ids_slice exact; max|err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; gradients, worst relative error above 1e-6 of the global norm: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst_grad.items()))
+          + f"; updated parameters max|err| {worst_param:.3e} (tolerances: metrics rtol 1e-4; "
+          f"gradients 1e-3 (decoder 1e-2) of the tensor's norm + 1e-6 of the global norm; "
+          f"parameters 2.01 x lr = {2.01 * lr:.2e})")
+    if bad:
+        raise AssertionError(f"train step card vs CPU: {bad[:10]}")
+    return errs, worst_grad, worst_param
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -415,9 +605,13 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{card} | generator: {n_params} parameters, configs/config_cje.yaml")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    launches, _ = check_forward(card, model, batch, gen, hps)
+    forward_launches, _ = check_forward(card, model, batch, gen, hps)
     check_infer(card, model, hps, rng, gen)
+    del model
+    torch.cuda.empty_cache()
+    train = {bf16: check_train(card, hps, batch, args.seed, bf16) for bf16 in (True, False)}
     check_card_against_cpu(card, args.seed)
+    check_train_card_against_cpu(card, args.seed)
 
     kernels = []
     # mas_fused replaces both Pallas kernels; the pair is off the main path
@@ -426,9 +620,16 @@ def main() -> int:
         ms, plain_ms, (b_ms, b_by) = mas_rows["main"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": "vits_torch/csrc/mas.cu",
-            "replaces": f"vits_tpu/ops/mas_pallas.py:{line}", "launches": launches[name],
+            "replaces": f"vits_tpu/ops/mas_pallas.py:{line}",
+            # the main path: the train steps under the config's bf16 policy
+            "launches": train[True]["launches"][name],
             "max_abs_err": mas_rows["err"][name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches_per_train_step": {
+                "bf16": train[True]["launches_per_step"] if name == "mas_fused" else 0,
+                "f32": train[False]["launches_per_step"] if name == "mas_fused" else 0,
+            },
+            "launches_per_forward": forward_launches[name],
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))

@@ -22,6 +22,7 @@ def _port_sources():
         ROOT / "chip_smoke.py",
         ROOT / "tools" / "profile_torch_slice.py",
         ROOT / "tools" / "probe_mas_fused.py",
+        ROOT / "tools" / "probe_step_grads.py",
     ]
 
 

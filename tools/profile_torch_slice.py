@@ -14,7 +14,14 @@ frames, no_grad, train mode) and for infer at batch 1 and 8
   * kernel time by name and the device's idle share over one profiled run
     (torch.profiler; idle = 1 - summed kernel time / wall time).
 
-    python3 tools/profile_torch_slice.py [--seed N] [--iters N]
+With --train it profiles training/step.py::train_step instead (the CJE
+generator and the flagship Avocodo discriminator, B=16 x 400 frames,
+segment 8192), under the config's bf16 policy and in f32: wall time, the
+device time between the step's phase boundaries (G forward, D step, G loss,
+G backward, the two optimizers; CUDA events from module, backward and
+optimizer hooks), kernel time by name and the idle share.
+
+    python3 tools/profile_torch_slice.py [--seed N] [--iters N] [--train]
 
 Needs a CUDA device. Every line carries the card's name and power limit.
 """
@@ -96,7 +103,9 @@ def kernel_profile(fn):
         wall = (time.perf_counter() - t0) * 1e3
     per = defaultdict(float)
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (an optimizer's step) span kernels already counted
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
             per[evt.name] += evt.time_range.elapsed_us()
     return dict(per), wall
 
@@ -116,10 +125,108 @@ def report(card, label, model, fn, iters):
               f"{name[:110]}")
 
 
+# the train step's phase boundaries, in the order they occur, and the phase
+# each interval between two of them belongs to
+STEP_SEGMENTS = (
+    ("setup: batch to the card, noise draws", "setup"),
+    ("G forward", "G forward"),
+    ("D forward: mel, PhaseAug, D, D loss", "D step"),
+    ("D backward", "D step"),
+    ("D gradient norm, lr", "optimizers"),
+    ("optim_d.step", "optimizers"),
+    ("G loss: PhaseAug, D, mel, losses", "G loss"),
+    ("G backward", "backward"),
+    ("G gradient norm, lr", "optimizers"),
+    ("optim_g.step", "optimizers"),
+    ("metrics", "setup"),
+)
+
+
+def step_breakdown(state, fn):
+    """Device ms between the phase boundaries of one train step, from CUDA
+    events recorded by hooks on the generator, Tensor.backward and both
+    optimizers."""
+    events = []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    hooks = [state.model.register_forward_pre_hook(mark),
+             state.model.register_forward_hook(mark)]
+    for optim in (state.optim_d, state.optim_g):
+        hooks += [optim.register_step_pre_hook(mark), optim.register_step_post_hook(mark)]
+    backward = torch.Tensor.backward
+
+    def marked_backward(self, *a, **k):
+        mark()
+        backward(self, *a, **k)
+        mark()
+
+    torch.Tensor.backward = marked_backward
+    try:
+        mark()
+        fn()
+        mark()
+        torch.cuda.synchronize()
+    finally:
+        torch.Tensor.backward = backward
+        for h in hooks:
+            h.remove()
+    if len(events) != len(STEP_SEGMENTS) + 1:
+        raise RuntimeError(f"{len(events)} phase boundaries, expected {len(STEP_SEGMENTS) + 1}")
+    return [(name, phase, a.elapsed_time(b))
+            for (name, phase), a, b in zip(STEP_SEGMENTS, events, events[1:])]
+
+
+def report_train(card, hps, batch, seed, iters, bf16):
+    from vits_torch.models.avocodo import AvocodoDiscriminator
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.training.step import create_train_state, train_step
+
+    label = f"train step {'bf16' if bf16 else 'f32'} B=16 T_y=400"
+    torch.manual_seed(seed)
+    state = create_train_state(
+        build_synthesizer(hps, bf16=bf16),
+        AvocodoDiscriminator(bf16=bf16, segment_size=hps.train.segment_size), hps,
+        steps_per_epoch=100,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = batch
+    tb = dict(x=b["x"], t=b["t"], x_lengths=b["x_lengths"], spec=b["y"],
+              spec_lengths=b["y_lengths"], ying=b["ying"], wav=b["wav"], sid=b["sid"])
+
+    def step():
+        return train_step(state, tb, hps, generator=gen)
+
+    step()  # warm-up
+    ms = wall_ms(step, iters)
+    segments = step_breakdown(state, step)
+    kernels, wall = kernel_profile(step)
+    busy = sum(kernels.values()) / 1e3
+    total = sum(t for _, _, t in segments)
+    print(f"{card} | {label}: wall {ms:.3f} ms (mean of {iters}); device span {total:.3f} ms; "
+          f"profiled run wall {wall:.3f} ms, kernel time {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}")
+    phases = defaultdict(float)
+    for name, phase, t in segments:
+        phases[phase] += t
+        print(f"{card} | {label}   segment {name}: {t:.3f} ms ({100 * t / total:.1f}%)")
+    for phase, t in sorted(phases.items(), key=lambda kv: -kv[1]):
+        print(f"{card} | {label}   phase {phase}: {t:.3f} ms ({100 * t / total:.1f}%)")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"{card} | {label}   kernel {us / 1e3:.3f} ms ({100 * us / 1e3 / busy:.1f}%) "
+              f"{name[:110]}")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--train", action="store_true", help="profile the GAN train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
@@ -133,6 +240,10 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda")
     b = chip_smoke.synthetic_batch(hps, rng, dev)
+    if args.train:
+        for bf16 in (True, False):
+            report_train(card, hps, b, args.seed, args.iters, bf16)
+        return 0
     torch.manual_seed(args.seed)
     model = build_synthesizer(hps)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

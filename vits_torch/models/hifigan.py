@@ -4,6 +4,10 @@ Weight-normed transposed convs (padding u//2 + u%2, output_padding u%2, so
 T_out = T_in * prod(rates)), MRF resblocks, and bias-free ``conv_posts`` for
 the last three stages. The hierarchical heads use the default-slope
 leaky_relu (0.01), not 0.1, as the reference does. Layout NCL.
+
+``bf16=True`` runs the whole stack in bfloat16 (input and conditioning cast
+at entry; parameters stay f32 and are cast at each conv); the ``tanh``
+outputs are cast back to f32, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from vits_torch.models.modules import LRELU_SLOPE, conv1d, weight_norm
+from vits_torch.models.modules import LRELU_SLOPE, ConvTranspose1d, conv1d, weight_norm
 
 
 def _wn_conv(channels, kernel_size, dilation=1):
@@ -70,9 +74,10 @@ class HiFiGANGenerator(nn.Module):
     def __init__(
         self, initial_channel, resblock_type, resblock_kernel_sizes,
         resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
-        upsample_kernel_sizes, gin_channels=0,
+        upsample_kernel_sizes, gin_channels=0, bf16=False,
     ):
         super().__init__()
+        self.bf16 = bf16
         self.num_kernels = len(resblock_kernel_sizes)
         self.num_upsamples = len(upsample_rates)
         self.conv_pre = conv1d(initial_channel, upsample_initial_channel, 7, padding=3)
@@ -83,7 +88,7 @@ class HiFiGANGenerator(nn.Module):
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
-            up = nn.ConvTranspose1d(
+            up = ConvTranspose1d(
                 upsample_initial_channel // (2**i), ch, k, stride=u,
                 padding=u // 2 + u % 2, output_padding=u % 2,
             )
@@ -98,6 +103,9 @@ class HiFiGANGenerator(nn.Module):
         )
 
     def _body(self, x, g, hier: bool):
+        if self.bf16:
+            x = x.to(torch.bfloat16)
+            g = g.to(torch.bfloat16) if g is not None else None
         x = self.conv_pre(x)
         if g is not None:
             x = x + self.cond(g)
@@ -112,7 +120,7 @@ class HiFiGANGenerator(nn.Module):
             first_head = self.num_upsamples - 3
             if (hier and i >= first_head) or i == self.num_upsamples - 1:
                 post = self.conv_posts[i - first_head]
-                outs.append(torch.tanh(post(F.leaky_relu(x))))
+                outs.append(torch.tanh(post(F.leaky_relu(x))).float())
         return outs
 
     def forward(self, x, g=None):

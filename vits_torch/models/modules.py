@@ -4,6 +4,12 @@
 Layout inside the modules is NCL, as in the torch reference: activations
 ``[B, C, T]``, masks ``[B, 1, T]``, speaker conditioning ``[B, gin, 1]``.
 
+A conv computes in its input's dtype, its weight and bias cast to it, as the
+JAX ``Conv1d`` does (``modules.py``: ``dtype = self.dtype or x.dtype``):
+under the bf16 policy the parameters stay f32 and only the compute is bf16,
+and the bias is added to the rounded conv output, as there; for an f32
+input nothing is cast.
+
 Weight norm is the legacy ``torch.nn.utils.weight_norm`` (dim 0), whose
 ``weight_g``/``weight_v`` keys are what ``vits_tpu/utils/convert_torch.py``
 reads. Its norm is ``||v||`` exactly; the JAX package takes
@@ -25,11 +31,39 @@ def weight_norm(module: nn.Module) -> nn.Module:
     return torch.nn.utils.weight_norm(module)
 
 
+def _in_dtype_of(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, conv):
+    """conv(x, weight, bias) in x's dtype; in another dtype than the
+    weight's, the bias is added after the conv's output is rounded."""
+    if weight.dtype == x.dtype:
+        return conv(x, weight, bias)
+    y = conv(x, weight.to(x.dtype), None)
+    return y if bias is None else y + bias.to(x.dtype)[:, None]
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in its input's dtype."""
+
+    def _conv_forward(self, input, weight, bias):
+        return _in_dtype_of(input, weight, bias, super()._conv_forward)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` computing in its input's dtype (no
+    ``output_size`` argument: the port fixes the output by padding)."""
+
+    def forward(self, input):
+        return _in_dtype_of(input, self.weight, self.bias, lambda x, w, b: F.conv_transpose1d(
+            x, w, b, self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation,
+        ))
+
+
 def conv1d(
     in_channels: int,
     out_channels: int,
     kernel_size: int,
     *,
+    stride: int = 1,
     dilation: int = 1,
     groups: int = 1,
     padding: int = 0,
@@ -38,11 +72,11 @@ def conv1d(
     init_std: float | None = None,
     zero_init: bool = False,
 ) -> nn.Module:
-    """``nn.Conv1d`` with torch's default init, or N(0, init_std) weights
+    """``Conv1d`` with torch's default init, or N(0, init_std) weights
     (HiFi-GAN), or zeros (flow output heads); weight-normed on request."""
-    conv = nn.Conv1d(
-        in_channels, out_channels, kernel_size, dilation=dilation, groups=groups,
-        padding=padding, bias=bias,
+    conv = Conv1d(
+        in_channels, out_channels, kernel_size, stride=stride, dilation=dilation,
+        groups=groups, padding=padding, bias=bias,
     )
     if zero_init:
         nn.init.zeros_(conv.weight)

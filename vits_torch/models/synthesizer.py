@@ -22,6 +22,11 @@ dict, JAX layout) or draws it from ``generator``:
            ``noise_scale_w``), ``eps`` [B, max_frames, inter] (prior sample)
 
 Dropout follows ``train()``/``eval()``, as the JAX ``deterministic`` flag.
+
+``bf16=True`` is the JAX package's compute policy: the two posterior
+encoders' WaveNet stacks and the HiFi-GAN decoder compute in bfloat16;
+parameters, stats, flows, MAS, the duration predictor, sampling and every
+loss-facing tensor stay f32.
 """
 
 from __future__ import annotations
@@ -50,6 +55,10 @@ from vits_torch.ops.commons import (
 from vits_torch.ops.mas import maximum_path
 from vits_torch.ops.yin import Yingram
 from vits_torch.text.symbols import symbols
+
+
+# the draws of one ``forward`` (see the module docstring)
+FORWARD_NOISE = ("eps_spec", "eps_yin", "scope_shift", "e_q", "slice_u")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -104,8 +113,6 @@ class SynthesizerTrn(nn.Module):
         device=None,
     ):
         super().__init__()
-        if bf16:
-            raise NotImplementedError("the bf16 policy comes with the training slice")
         device = resolve_device(device)
         self.segment_size = segment_size
         self.inter_channels = inter_channels
@@ -124,15 +131,15 @@ class SynthesizerTrn(nn.Module):
         self.waveform_decoder = HiFiGANGenerator(
             spec_ch + yin_scope, resblock, resblock_kernel_sizes,
             resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
-            upsample_kernel_sizes, gin_channels=gin_channels,
+            upsample_kernel_sizes, gin_channels=gin_channels, bf16=bf16,
         )
         self.posterior_encoder = PosteriorEncoder(
             spec_channels, spec_ch, spec_ch, 5, 1, posterior_layers,
-            gin_channels=gin_channels,
+            gin_channels=gin_channels, bf16=bf16,
         )
         self.pitch_encoder = PosteriorEncoder(
             yin_channels, yin_channels, yin_channels, 5, 1, posterior_layers,
-            gin_channels=gin_channels,
+            gin_channels=gin_channels, bf16=bf16,
         )
         self.flow = ResidualCouplingBlock(
             inter_channels, hidden_channels, 5, 1, flow_wn_layers, n_flows=flow_n_flows,
@@ -192,6 +199,19 @@ class SynthesizerTrn(nn.Module):
             return v
         draw = torch.randn if kind == "normal" else torch.rand
         return draw(shape, generator=generator, device=self.device)
+
+    def draw_noise(self, b: int, t_x: int, t_y: int, generator=None) -> dict:
+        """Every draw of one ``forward`` at batch b, up front (JAX layout):
+        what ``forward(noise=...)`` takes, so that a replay of the forward
+        (``torch.utils.checkpoint``) sees the same numbers."""
+        spec_ch = self.inter_channels - self.yin_channels
+        return {
+            "eps_spec": self._noise(None, "", (b, t_y, spec_ch), generator),
+            "eps_yin": self._noise(None, "", (b, t_y, self.yin_channels), generator),
+            "scope_shift": self.yin_decoder.draw_shift(b, generator, self.device),
+            "e_q": self._noise(None, "", (b, t_x, 2), generator),
+            "slice_u": self._noise(None, "", (b,), generator, kind="uniform"),
+        }
 
     # -- training forward ------------------------------------------------
 
@@ -389,8 +409,10 @@ class SynthesizerTrn(nn.Module):
         return wav.transpose(1, 2), y_mask.transpose(1, 2), y_lengths
 
 
-def build_synthesizer(hps: HParams, device=None, num_chars: int | None = None):
+def build_synthesizer(
+    hps: HParams, device=None, num_chars: int | None = None, bf16: bool = False
+):
     """The generator of a config (``configs/*.yaml``) with fresh weights, on
     ``cuda`` unless ``device`` says otherwise."""
     kwargs = synthesizer_kwargs(hps, num_chars or len(symbols))
-    return SynthesizerTrn(**kwargs, device=resolve_device(device))
+    return SynthesizerTrn(**kwargs, bf16=bf16, device=resolve_device(device))

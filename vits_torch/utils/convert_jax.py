@@ -10,6 +10,12 @@ arrays) maps back onto ``state_dict()`` keys with only layout changes:
   nn.Embed embedding                       -> nn.Embedding weight
   flax LayerNorm (scale, bias)             -> (gamma, beta)
 
+The discriminator (``models/avocodo.py``) maps the same way, the inverse of
+``convert_discriminator``: ``combd/block_{i}/conv_{j}`` ->
+``combd.blocks.{i}.convs.{j}``, ``projection`` -> ``projection_conv``,
+``sbd/disc_{i}/mdc_{j}/dconv_{k}`` ->
+``sbd.discriminators.{i}.convs.{j}.d_convs.{k}``, ``post`` -> ``post_conv``.
+
 Depths (layers, flows, resblocks) are read off the port module, so one call
 works for any configuration. ``load_flax_params`` loads strictly: a key the
 tree does not fill, or a shape that differs, raises.
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from vits_torch.models.attention import MultiHeadAttention
+from vits_torch.models.avocodo import MDC, AvocodoDiscriminator, CoMBDBlock, SBDBlock
 from vits_torch.models.duration import StochasticDurationPredictor
 from vits_torch.models.flows import (
     ConvFlow,
@@ -177,6 +184,31 @@ def _synthesizer(sd, prefix, p, m: SynthesizerTrn):
         sd[f"{prefix}.emb_g.weight"] = np.asarray(p["emb_g"]["embedding"])
 
 
+def _combd_block(sd, prefix, p, m: CoMBDBlock):
+    for i in range(len(m.convs)):
+        _conv(sd, f"{prefix}.convs.{i}", p[f"conv_{i}"], weight_norm=True)
+    _conv(sd, f"{prefix}.projection_conv", p["projection"], weight_norm=True)
+
+
+def _mdc(sd, prefix, p, m: MDC):
+    for i in range(len(m.d_convs)):
+        _conv(sd, f"{prefix}.d_convs.{i}", p[f"dconv_{i}"], weight_norm=True)
+    _conv(sd, f"{prefix}.post_conv", p["post"], weight_norm=True)
+
+
+def _sbd_block(sd, prefix, p, m: SBDBlock):
+    for i, mdc in enumerate(m.convs):
+        _mdc(sd, f"{prefix}.convs.{i}", p[f"mdc_{i}"], mdc)
+    _conv(sd, f"{prefix}.post_conv", p["post"], weight_norm=True)
+
+
+def _discriminator(sd, prefix, p, m: AvocodoDiscriminator):
+    for i, block in enumerate(m.combd.blocks):
+        _combd_block(sd, f"{prefix}.combd.blocks.{i}", p["combd"][f"block_{i}"], block)
+    for i, disc in enumerate(m.sbd.discriminators):
+        _sbd_block(sd, f"{prefix}.sbd.discriminators.{i}", p["sbd"][f"disc_{i}"], disc)
+
+
 _CONVERTERS = {
     WaveNet: _wavenet,
     DDSConv: _ddsconv,
@@ -190,6 +222,10 @@ _CONVERTERS = {
     HiFiGANGenerator: _hifigan,
     YingDecoder: _ying_decoder,
     SynthesizerTrn: _synthesizer,
+    CoMBDBlock: _combd_block,
+    MDC: _mdc,
+    SBDBlock: _sbd_block,
+    AvocodoDiscriminator: _discriminator,
 }
 
 
