@@ -33,6 +33,21 @@ to the CPU):
                weights, noise and PhaseAug rotations, TF32 off, cuDNN
                deterministic, dropout off: every metric, gradient and updated
                parameter held to the CPU's; attn and ids_slice exact
+  7. serve     serve/engine.py::TTSEngine on configs/config_cje.yaml at full
+               width, max_frames=1000, random weights from the seed, TF32
+               convolutions as PyTorch defaults: synthesize one text a
+               language (ZH, JA, EN, P, mixed) and one over 384 ids (phrase
+               split), each median/min/max of 5 with its real-time factor
+               and IPA; synthesize_batch of 8 (one batch) against each
+               request alone; synthesize_streaming (first chunk against the
+               whole call, equal to synthesize_chunked bit for bit);
+               voice_conversion of 3 s and of audio longer than the largest
+               VC bucket (cross-faded windows); DynamicBatcher with 16
+               requests from threads; synthesize from new threads; the HTTP
+               API on 127.0.0.1 (health, WAV, JSON, each request timed); MAS
+               launched 0 times; then the tiny test
+               configuration's engine on the card and on the CPU with the
+               same weights and noise, TF32 off: audio held to the CPU's
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Every number printed carries the card's
@@ -45,7 +60,10 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -93,18 +111,24 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def wall_stats(fn, n=5):
+    """((median, min, max) wall ms of fn() + synchronize over n runs after
+    one warm-up run, the last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (float(np.median(times)), min(times), max(times)), out
+
+
 def host_ms(fn, iters=10) -> tuple[float, float, float]:
     """(median, min, max) wall ms of fn() + synchronize over iters runs,
     after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times)), min(times), max(times)
+    return wall_stats(fn, iters)[0]
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -570,6 +594,340 @@ def check_train_card_against_cpu(card, seed):
     return errs, worst_grad, worst_param
 
 
+SERVE_TEXTS = {
+    "ZH": "[ZH]今天天气很好，我们一起去公园散步吧。[ZH]",
+    "JA": "[JA]こんにちは、今日は東京で友達と会います。[JA]",
+    "EN": "[EN]The quick brown fox jumps over the lazy dog near the river bank.[EN]",
+    "P": "[P]ni3#hao3 shi4#jie4 zai4#jian4[P]",
+    "mixed": "[ZH]你好[ZH][EN]nice to meet you[EN][JA]よろしくお願いします[JA]",
+    "long": "[EN]On a quiet morning in early spring, the old lighthouse keeper walked slowly "
+            "along the rocky shore to watch the ships. The wind was cold, but the sky was "
+            "clear and bright, and far away the gulls were calling over the water.[EN]",
+}
+# 129-256 ids each after add_blank: one (text 256, frames 1000) group of 8
+SERVE_BATCH = [
+    "[ZH]今天天气很好，我们一起去公园散步吧。[ZH]",
+    "[EN]Please remember to bring your umbrella, because the weather report says it will "
+    "rain this afternoon.[EN]",
+    "[JA]新しい図書館は駅の東口から歩いて五分のところにあります。[JA]",
+    "[ZH]欢迎来到北京[ZH][EN]we hope you enjoy your stay in the city[EN]",
+    "[P]jin1#tian1 tian1#qi4 hen3#hao3, wo3#men5 yi4#qi3 qu4 gong1#yuan2 san4#bu4 ba5.[P]",
+    "[EN]The quick brown fox jumps over the lazy dog near the river bank.[EN]",
+    "[EN]On a quiet morning in early spring, the old lighthouse keeper walked slowly along "
+    "the rocky shore to watch the ships.[EN]",
+    "[JA]昨日の夜、私は友達と一緒に駅の近くの小さなレストランで美味しいラーメンを食べました。[JA]",
+]
+# batch rows against the same request alone, on the card with TF32
+# convolutions: cuDNN picks its algorithms per batch size, so the rows agree
+# to TF32 rounding (10-bit mantissa) carried through the generator, not bit
+# for bit: lengths must be equal and max|err| within this share of the row's
+# peak (8.5e-4 measured on an H100)
+BATCH_VS_SOLO_REL = 1e-2
+# the decoder's init (normal, std 0.01) gives a near-constant hum of ~1e-3;
+# the card-vs-CPU check raises its weight-norm gains so the audio has signal
+DECODER_GAIN = 16
+# the tiny configuration of tests/test_engine.py
+TINY_SERVE_CFG = {
+    "train": {"segment_size": 2048},
+    "data": {
+        "sampling_rate": 22050, "filter_length": 1024, "hop_length": 256,
+        "win_length": 1024, "n_mel_channels": 80, "mel_fmin": 0.0, "mel_fmax": None,
+        "add_blank": True, "speakers": ["A", "B"], "midi_start": -5, "midi_end": 75,
+        "midis": 80, "ying_window": 2048, "ying_hop": 256, "tau_max": 2048,
+        "octave_range": 24,
+    },
+    "model": {
+        "inter_channels": 96, "hidden_channels": 48, "filter_channels": 64, "n_heads": 2,
+        "n_layers": 1, "kernel_size": 3, "p_dropout": 0.0, "resblock": "1",
+        "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3]],
+        "upsample_rates": [8, 8, 2, 2], "upsample_initial_channel": 32,
+        "upsample_kernel_sizes": [16, 16, 4, 4], "gin_channels": 16, "yin_channels": 80,
+        "yin_start": 15, "yin_scope": 50, "yin_shift_range": 15,
+    },
+}
+
+
+def synthetic_voice(n, sr, seed):
+    """A gliding two-partial tone with a little noise, float32 [n]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    f0 = 140 + 40 * np.sin(2 * np.pi * 0.5 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.01 * rng.standard_normal(n)
+    return wav.astype(np.float32)
+
+
+def seeded_noise(seed, shapes):
+    """Numpy draws keyed by (seed, position): the same on every device."""
+    return {k: np.random.default_rng([seed, i]).standard_normal(s).astype(np.float32)
+            for i, (k, s) in enumerate(shapes.items())}
+
+
+def check_serve(card, config_path, seed):
+    """Phase 7: the serving path at full width on the card."""
+    from vits_torch.ops import mas_cuda
+    from vits_torch.serve import http_api
+    from vits_torch.serve.batcher import DynamicBatcher
+    from vits_torch.serve.engine import TTSEngine
+
+    # phase 6 turned TF32 off; serving runs with PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    eng = TTSEngine(config_path, max_frames=1000)
+    if eng.device.type != "cuda" or eng.model.device.type != "cuda":
+        raise AssertionError(f"the engine runs on {eng.device}, not the card")
+    sr, hop = eng.sampling_rate, eng.hop
+    print(f"{card} | serve engine: {Path(config_path).name}, max_frames=1000, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    out = {"synthesize": {}}
+
+    def audio_ok(label, audio, min_len=1):
+        if audio.dtype != np.float32 or audio.ndim != 1 or len(audio) < min_len \
+                or not np.isfinite(audio).all():
+            raise AssertionError(f"serve {label}: audio {audio.dtype} {audio.shape} not finite "
+                                 f"or too short")
+
+    for i, (lang, text) in enumerate(SERVE_TEXTS.items()):
+        seq, _, ipa = eng.get_phoneme(text)
+        n_seg = len(eng._split_segments(seq, seq, eng.TEXT_BUCKETS[-1]))
+        ms, (phones, (rate, audio)) = wall_stats(
+            lambda: eng.synthesize(text, speaker_id=i % 5, seed=seed + i))
+        audio_ok(lang, audio)
+        if rate != sr or phones != ipa or (lang == "long") != (n_seg > 1):
+            raise AssertionError(f"serve {lang}: rate {rate}, {n_seg} segments")
+        secs = len(audio) / sr
+        out["synthesize"][lang] = dict(ms=ms, ids=len(seq), segments=n_seg, audio_s=secs)
+        print(f"{card} | serve synthesize {lang}: {len(seq)} ids, {n_seg} segment(s), "
+              f"{secs:.3f} s of audio; median {ms[0]:.2f} ms (min {ms[1]:.2f}, max "
+              f"{ms[2]:.2f}, n=5; host clock), real-time factor {ms[0] / 1e3 / secs:.5f}; "
+              f"IPA {ipa!r}")
+
+    reqs = [dict(text=t, speaker_id=i % 5, seed=seed + 10 + i, scope_shift=(i % 3 - 1) * 4,
+                 duration=(0.9, 1.0, 1.2)[i % 3]) for i, t in enumerate(SERVE_BATCH)]
+    groups = {(eng._bucket(len(eng.get_phoneme(r["text"])[0])),
+               eng._first_frames(len(eng.get_phoneme(r["text"])[0]), r["duration"])) for r in reqs}
+    ms, batch = wall_stats(lambda: eng.synthesize_batch(reqs))
+    worst, worst_rel, lengths_equal = 0.0, 0.0, True
+    for r, a in zip(reqs, batch):
+        if isinstance(a, Exception):
+            raise AssertionError(f"serve batch: {a!r}")
+        audio_ok("batch row", a)
+        solo = eng._synthesize_request(r)
+        if len(solo) != len(a):
+            lengths_equal = False
+            print(f"{card} | serve batch row {r['text'][:12]!r}: {len(a)} samples in the batch, "
+                  f"{len(solo)} alone")
+            continue
+        err = float(np.abs(solo - a).max())
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / max(float(np.abs(solo).max()), 1e-12))
+    secs = sum(len(a) for a in batch) / sr
+    out["batch"] = dict(ms=ms, utterances_per_s=len(reqs) / (ms[0] / 1e3), audio_s=secs,
+                        max_abs_err_vs_alone=worst, max_rel_err_vs_alone=worst_rel)
+    print(f"{card} | serve synthesize_batch of {len(reqs)} ({len(groups)} group(s) "
+          f"{sorted(groups)}): median {ms[0]:.2f} ms (min {ms[1]:.2f}, max {ms[2]:.2f}, n=5), "
+          f"{len(reqs) / (ms[0] / 1e3):.2f} utterances/s, {secs:.3f} s of audio, real-time "
+          f"factor {ms[0] / 1e3 / secs:.5f}; rows against each request alone: lengths "
+          f"{'equal' if lengths_equal else 'DIFFER'}, max|err| {worst:.3e}, {worst_rel:.3e} of "
+          f"the row's peak (tolerance {BATCH_VS_SOLO_REL} of the peak; TF32 convolutions)")
+    if not lengths_equal or worst_rel > BATCH_VS_SOLO_REL:
+        raise AssertionError("serve batch: a row differs from its request alone")
+
+    text = SERVE_TEXTS["long"]
+    _, (_, chunked) = eng.synthesize_chunked(text, 1, seed=seed)
+    t0 = time.perf_counter()
+    _, stream = eng.synthesize_streaming(text, 1, seed=seed)
+    chunks = [next(stream)]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    chunks += list(stream)
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    streamed = np.concatenate(chunks)
+    audio_ok("stream", streamed)
+    equal = streamed.shape == chunked.shape and np.array_equal(streamed, chunked)
+    out["stream"] = dict(first_chunk_ms=first_ms, whole_ms=whole_ms, chunks=len(chunks))
+    print(f"{card} | serve synthesize_streaming (the long text, chunk 128 + 2 x 16 frames): "
+          f"first chunk after {first_ms:.2f} ms, all {len(chunks)} chunks after {whole_ms:.2f} "
+          f"ms ({len(streamed) / sr:.3f} s of audio); equal to synthesize_chunked bit for bit: "
+          f"{equal}")
+    if not equal:
+        raise AssertionError("serve: streamed chunks differ from synthesize_chunked")
+
+    out["vc"] = {}
+    for label, n in (("3 s", 3 * sr), ("windowed", eng.VC_BUCKETS[-1] + 3 * sr)):
+        wav = synthetic_voice(n, sr, seed)
+        ms, conv = wall_stats(lambda: eng.voice_conversion(wav, 0, 3, seed=seed), n=3)
+        want = n if n > eng.VC_BUCKETS[-1] else n // hop * hop
+        audio_ok(f"vc {label}", conv, want)
+        if len(conv) != want:
+            raise AssertionError(f"serve vc {label}: {len(conv)} samples, want {want}")
+        windows = 1 if n <= eng.VC_BUCKETS[-1] else \
+            -(-(n - eng.VC_OVERLAP) // (eng.VC_BUCKETS[-1] - eng.VC_OVERLAP))
+        out["vc"][label] = dict(ms=ms, audio_s=n / sr, windows=windows)
+        print(f"{card} | serve voice_conversion {label}: {n / sr:.3f} s in, {windows} window(s); "
+              f"median {ms[0]:.2f} ms (min {ms[1]:.2f}, max {ms[2]:.2f}, n=3), real-time factor "
+              f"{ms[0] / 1e3 / (n / sr):.5f}")
+
+    sizes = []
+    synthesize_batch = eng.synthesize_batch
+
+    def counted(reqs):
+        sizes.append(len(reqs))
+        return synthesize_batch(reqs)
+
+    eng.synthesize_batch = counted
+    batcher = DynamicBatcher(eng, max_batch=8, max_wait_ms=10.0)
+    futs = [None] * 16
+    try:
+        def submit(i):
+            futs[i] = batcher.submit(SERVE_BATCH[i % 8], speaker_id=i % 5, seed=seed + 100 + i)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        results = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        batcher.close()
+        del eng.synthesize_batch
+    for rate, audio in results:
+        audio_ok("batcher", audio)
+    secs = sum(len(a) for _, a in results) / sr
+    out["batcher"] = dict(s=wall, utterances_per_s=16 / wall, audio_s=secs, batches=sizes)
+    print(f"{card} | serve DynamicBatcher (max_batch 8, max_wait 10 ms), 16 requests from 16 "
+          f"threads: {wall * 1e3:.2f} ms, {16 / wall:.2f} utterances/s, {secs:.3f} s of audio; "
+          f"batches of {sizes} (the worker thread is new: its first batch pays a new thread's "
+          f"first-call set-up, tools/probe_serve_threads.py)")
+
+    # a request served from a thread that has not touched the card yet, as
+    # each handler thread of the HTTP server is
+    fresh = []
+
+    def timed_synthesize():
+        t0 = time.perf_counter()
+        eng.synthesize(SERVE_TEXTS["EN"], 2, seed)
+        torch.cuda.synchronize()
+        fresh.append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(3):
+        th = threading.Thread(target=timed_synthesize)
+        th.start()
+        th.join(timeout=120)
+    if len(fresh) != 3:
+        raise AssertionError("serve: a synthesize from a new thread failed")
+    out["fresh_thread_ms"] = fresh
+    print(f"{card} | serve synthesize EN, each call from a new thread: "
+          + ", ".join(f"{v:.2f}" for v in fresh) + " ms (host clock; the same call from the "
+          f"main thread: median {out['synthesize']['EN']['ms'][0]:.2f} ms)")
+
+    server = http_api.serve(eng, "127.0.0.1", 0)
+    port = server.server_address[1]
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    body = {"text": SERVE_TEXTS["EN"], "speaker_id": 2, "seed": seed}
+
+    def post(payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/synthesize",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.headers["Content-Type"], r.read()
+
+    http_ms = []
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        http_ms.append((time.perf_counter() - t0) * 1e3)
+        for payload in (body, dict(body, format="json"), body, body):
+            t0 = time.perf_counter()
+            ctype_i, data = post(payload)
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            if payload.get("format") == "json":
+                js = json.loads(data)
+            else:
+                ctype, wav = ctype_i, data
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=60)
+    ipa, (_, ref) = eng.synthesize(SERVE_TEXTS["EN"], 2, seed)
+    if health != {"status": "ok", "sampling_rate": sr} or ctype != "audio/wav" \
+            or wav[:4] != b"RIFF" or len(wav) != 44 + 2 * len(ref) \
+            or js["ipa"] != ipa or js["num_samples"] != len(ref):
+        raise AssertionError("serve: the HTTP round trip disagrees with the engine")
+    out["http_ms"] = http_ms
+    print(f"{card} | serve HTTP API on 127.0.0.1:{port}: /health ok in {http_ms[0]:.2f} ms; "
+          f"/synthesize as WAV ({len(wav)} bytes) {http_ms[1]:.2f} ms, as JSON "
+          f"({js['num_samples']} samples, IPA as the engine's) {http_ms[2]:.2f} ms, as WAV "
+          f"again {http_ms[3]:.2f} and {http_ms[4]:.2f} ms (a handler thread each)")
+
+    launches = dict(mas_cuda.launches)
+    print(f"{card} | serve: MAS launches over the whole phase {launches}")
+    if any(launches.values()):
+        raise AssertionError("serving must not run MAS")
+    out["mas_launches"] = launches
+    del eng
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = check_serve_card_against_cpu(card, seed)
+    return out
+
+
+def check_serve_card_against_cpu(card, seed):
+    """Phase 7, last part: the tiny configuration's engine on the card and
+    on the CPU with the same weights and noise, TF32 off."""
+    import yaml
+
+    from vits_torch.serve.engine import TTSEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as d:
+        cfg = Path(d) / "tiny.yaml"
+        cfg.write_text(yaml.safe_dump(TINY_SERVE_CFG))
+        torch.manual_seed(seed)
+        cpu = TTSEngine(str(cfg), max_frames=96, device="cpu", noise_fn=seeded_noise)
+        gpu = TTSEngine(str(cfg), max_frames=96, device="cuda", noise_fn=seeded_noise)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in cpu.model.named_parameters():
+            if not prm.any():  # zero-init heads: make the flows no identity
+                prm.copy_(0.1 * torch.randn(prm.shape, generator=gen))
+            if name.startswith("waveform_decoder.") and name.endswith("weight_g"):
+                prm.mul_(DECODER_GAIN)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    texts = ["[P]ni3#hao3 shi4#jie4[P]", SERVE_TEXTS["mixed"]]
+    wav = synthetic_voice(5000, 22050, seed)
+    runs = {
+        "synthesize": lambda e: [e.synthesize(t, 1, seed=seed + i, scope_shift=3)[1][1]
+                                 for i, t in enumerate(texts)],
+        "batch": lambda e: e.synthesize_batch([dict(text=t, seed=seed + i, duration=1.1)
+                                               for i, t in enumerate(texts)]),
+        "chunked": lambda e: [e.synthesize_chunked(texts[1], 0, seed=seed, chunk_frames=16)[1][1]],
+        "voice_conversion": lambda e: [e.voice_conversion(wav, 0, 1, seed=seed)],
+    }
+    worst, peak = {}, 0.0
+    for name, run in runs.items():
+        for ref, got in zip(run(cpu), run(gpu)):
+            if ref.shape != got.shape:
+                raise AssertionError(f"serve card vs CPU {name}: {got.shape} against {ref.shape}")
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"serve card vs CPU {name}")
+            worst[name] = max(worst.get(name, 0.0), float(np.abs(got - ref).max()))
+            peak = max(peak, float(np.abs(ref).max()))
+    print(f"{card} | serve card vs CPU, tiny config (decoder gains x{DECODER_GAIN}, audio peak "
+          f"{peak:.3f}), TF32 off, same weights and noise: lengths equal, max|err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + " (tolerance rtol 1e-4, atol 1e-4)")
+    return worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -612,6 +970,7 @@ def main() -> int:
     train = {bf16: check_train(card, hps, batch, args.seed, bf16) for bf16 in (True, False)}
     check_card_against_cpu(card, args.seed)
     check_train_card_against_cpu(card, args.seed)
+    serve = check_serve(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
 
     kernels = []
     # mas_fused replaces both Pallas kernels; the pair is off the main path
@@ -630,6 +989,7 @@ def main() -> int:
                 "f32": train[False]["launches_per_step"] if name == "mas_fused" else 0,
             },
             "launches_per_forward": forward_launches[name],
+            "launches_in_serve": serve["mas_launches"][name],
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))

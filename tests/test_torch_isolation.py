@@ -23,6 +23,7 @@ def _port_sources():
         ROOT / "tools" / "profile_torch_slice.py",
         ROOT / "tools" / "probe_mas_fused.py",
         ROOT / "tools" / "probe_step_grads.py",
+        ROOT / "tools" / "probe_serve_threads.py",
     ]
 
 

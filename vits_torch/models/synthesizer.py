@@ -1,7 +1,7 @@
 """SynthesizerTrn: conditional VAE + flow + hierarchical HiFi-GAN generator
 with PITS yingram pitch control (port of ``vits_tpu/models/synthesizer.py``).
 
-Two entry points of the JAX model are ported here:
+Every entry point of the JAX model is ported here:
   * ``forward`` (JAX ``__call__``): the generator's training forward. Text
     encoder -> spec and pitch posteriors -> flow -> neg-cross-entropy lattice
     -> MAS (the CUDA kernels on the card) -> SDP duration loss -> prior
@@ -9,17 +9,32 @@ Two entry points of the JAX model are ported here:
     decode -> yingram of the output.
   * ``infer``: ``infer_pre_decoder`` (text encoder, SDP reverse,
     ``_expand_and_flow``) then ``infer_decode_chunk``.
+  * the staged latency-control API: ``infer_pre_lr`` (text encoder, SDP
+    reverse), ``infer_lr`` (length regulation), ``infer_post_lr_pre_decoder``
+    (prior sample, reverse flow, scope crop), then ``infer_decode_chunk``.
+  * ``yin_dec_infer`` (the yin decoder at a random shift, for evaluation) and
+    ``voice_conversion`` (both posteriors through the flow to the target
+    speaker, scope-cropped decoder input).
 
 Inputs and outputs keep the JAX layout (``[B, T, C]``, masks ``[B, T, 1]``);
 the submodules run NCL. Every random site takes its noise from ``noise`` (a
-dict, JAX layout) or draws it from ``generator``:
+dict, JAX layout) or draws it from ``generator``, in the order listed:
 
-  forward: ``eps_spec`` [B, T_y, spec_ch], ``eps_yin`` [B, T_y, yin_ch]
-           (posterior samples), ``scope_shift`` [B] int (yin decoder shift),
-           ``e_q`` [B, T_x, 2] (SDP posterior noise), ``slice_u`` [B]
-           (uniform slice offsets)
-  infer:   ``sdp_noise`` [B, T_x, 2] (SDP reverse noise, before
-           ``noise_scale_w``), ``eps`` [B, max_frames, inter] (prior sample)
+  forward:          ``eps_spec`` [B, T_y, spec_ch], ``eps_yin`` [B, T_y,
+                    yin_ch] (posterior samples), ``scope_shift`` [B] int (yin
+                    decoder shift), ``e_q`` [B, T_x, 2] (SDP posterior
+                    noise), ``slice_u`` [B] (uniform slice offsets)
+  infer:            ``sdp_noise`` [B, T_x, 2] (SDP reverse noise, before
+                    ``noise_scale_w``), ``eps`` [B, max_frames, inter] (prior
+                    sample)
+  infer_pre_lr:     ``sdp_noise``
+  infer_post_lr_pre_decoder: ``eps`` [B, T_y, inter]
+  yin_dec_infer:    ``scope_shift`` [B] int
+  voice_conversion: ``eps_spec``, ``eps_yin`` (as in forward)
+
+``infer`` and ``infer_pre_decoder`` also take one ``length_scale`` and one
+``scope_shift`` a row ([B] tensors), as the JAX engine's vmapped batch gives
+each request its own.
 
 Dropout follows ``train()``/``eval()``, as the JAX ``deterministic`` flag.
 
@@ -44,7 +59,7 @@ from vits_torch.models.hifigan import HiFiGANGenerator
 from vits_torch.models.modules import embedding
 from vits_torch.models.posterior_encoder import PosteriorEncoder
 from vits_torch.models.text_encoder import TextEncoder
-from vits_torch.models.ying_decoder import YingDecoder
+from vits_torch.models.ying_decoder import YingDecoder, crop_channels
 from vits_torch.ops.commons import (
     crop_scope,
     dynamic_start,
@@ -173,7 +188,10 @@ class SynthesizerTrn(nn.Module):
 
     def _crop0(self, x, scope_shift=0, dim=1):
         """Scope crop of channels ``yin_start + scope_shift`` onwards, the
-        start placed as ``jax.lax.dynamic_slice`` places it."""
+        start placed as ``jax.lax.dynamic_slice`` places it; a [B] tensor
+        shift crops each row of an NCL tensor at its own."""
+        if isinstance(scope_shift, torch.Tensor) and scope_shift.ndim == 1:
+            return crop_channels(x, self.yin_start, self.yin_scope, scope_shift.to(x.device))
         start = dynamic_start(self.yin_start + int(scope_shift), self.yin_scope, x.shape[dim])
         return x.narrow(dim, start, self.yin_scope)
 
@@ -334,11 +352,9 @@ class SynthesizerTrn(nn.Module):
 
     # -- inference -------------------------------------------------------
 
-    def _pre_decoder(
-        self, x, t, x_lengths, sid, noise, generator, noise_scale, length_scale,
-        noise_scale_w, max_frames, scope_shift,
-    ):
-        """``infer_pre_decoder`` with NCL decoder inputs and mask."""
+    def _durations(self, x, t, x_lengths, sid, noise, generator, length_scale, noise_scale_w):
+        """Text encoder + SDP reverse, NCL: (w_ceil [B, 1, T_x], x_h, m_p,
+        logs_p, x_mask, g). ``length_scale``: a float or one a row ([B])."""
         b, t_x = x.shape
         x_h, m_p, logs_p, x_mask = self.text_encoder(x, t, x_lengths)
         g = self._speaker_embedding(sid)
@@ -346,21 +362,32 @@ class SynthesizerTrn(nn.Module):
         logw = self.duration_predictor.reverse(
             x_h, x_mask, g=g, z=z.transpose(1, 2), noise_scale=noise_scale_w
         )
+        if isinstance(length_scale, torch.Tensor):
+            length_scale = length_scale.to(logw.device, logw.dtype).reshape(-1, 1, 1)
         w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
+        return w_ceil, x_h, m_p, logs_p, x_mask, g
+
+    def _pre_decoder(
+        self, x, t, x_lengths, sid, noise, generator, noise_scale, length_scale,
+        noise_scale_w, max_frames, scope_shift,
+    ):
+        """``infer_pre_decoder`` with NCL decoder inputs and mask."""
+        w_ceil, _, m_p, logs_p, x_mask, g = self._durations(
+            x, t, x_lengths, sid, noise, generator, length_scale, noise_scale_w
+        )
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1).to(torch.int32)
         y_lengths = torch.clamp(y_lengths, max=max_frames)
-        eps = self._noise(noise, "eps", (b, max_frames, self.inter_channels), generator)
+        eps = self._noise(noise, "eps", (x.shape[0], max_frames, self.inter_channels), generator)
         decoder_inputs, y_mask, aux = self._expand_and_flow(
             w_ceil[:, 0], m_p, logs_p, x_mask, g, eps.transpose(1, 2), noise_scale,
             max_frames, scope_shift,
         )
         return decoder_inputs, y_mask, y_lengths, aux, g
 
-    def _expand_and_flow(
-        self, w_ceil, m_p, logs_p, x_mask, g, eps, noise_scale, max_frames, scope_shift
-    ):
-        """Length-regulate + reverse flow + scope crop. NCL in and out:
-        w_ceil [B, T_x]; m_p, logs_p [B, C, T_x]; eps [B, C, max_frames]."""
+    def _length_regulate(self, w_ceil, m_p, logs_p, x_mask, max_frames):
+        """Expand the prior over frames, NCL: w_ceil [B, T_x]; m_p, logs_p
+        [B, C, T_x] -> (m_p_exp, logs_p_exp [B, C, max_frames], y_mask [B, 1,
+        max_frames])."""
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=1), min=1).to(torch.int32)
         y_lengths = torch.clamp(y_lengths, max=max_frames)
         y_mask = sequence_mask(y_lengths, max_frames).unsqueeze(1).to(m_p.dtype)
@@ -368,12 +395,24 @@ class SynthesizerTrn(nn.Module):
         attn = generate_path(w_ceil, attn_mask)
         m_p_exp = torch.matmul(attn, m_p.transpose(1, 2)).transpose(1, 2)
         logs_p_exp = torch.matmul(attn, logs_p.transpose(1, 2)).transpose(1, 2)
-        z_p = m_p_exp + eps * torch.exp(logs_p_exp) * noise_scale
+        return m_p_exp, logs_p_exp, y_mask
+
+    def _flow_and_crop(self, m_p, logs_p, y_mask, g, eps, noise_scale, scope_shift):
+        """Prior sample + reverse flow + scope crop, NCL in and out."""
+        z_p = m_p + eps * torch.exp(logs_p) * noise_scale
         z = self.flow(z_p, y_mask, g=g, reverse=True)
         spec_ch = self.inter_channels - self.yin_channels
         z_spec, z_yin = z[:, :spec_ch], z[:, spec_ch:]
         z_crop = torch.cat([z_spec, self._crop0(z_yin, scope_shift)], dim=1)
-        return z_crop * y_mask, y_mask, (z_crop, z, z_p, m_p_exp, logs_p_exp)
+        return z_crop * y_mask, y_mask, (z_crop, z, z_p, m_p, logs_p)
+
+    def _expand_and_flow(
+        self, w_ceil, m_p, logs_p, x_mask, g, eps, noise_scale, max_frames, scope_shift
+    ):
+        """Length-regulate + reverse flow + scope crop. NCL in and out:
+        w_ceil [B, T_x]; m_p, logs_p [B, C, T_x]; eps [B, C, max_frames]."""
+        m_p_exp, logs_p_exp, y_mask = self._length_regulate(w_ceil, m_p, logs_p, x_mask, max_frames)
+        return self._flow_and_crop(m_p_exp, logs_p_exp, y_mask, g, eps, noise_scale, scope_shift)
 
     def infer_pre_decoder(
         self, x, t, x_lengths, sid=None, *, noise=None, generator=None,
@@ -407,6 +446,87 @@ class SynthesizerTrn(nn.Module):
         )
         wav = self.waveform_decoder(dec_in, g=g)
         return wav.transpose(1, 2), y_mask.transpose(1, 2), y_lengths
+
+    # -- staged latency-control API ----------------------------------------
+
+    def infer_pre_lr(
+        self, x, t, x_lengths, sid=None, *, noise=None, generator=None,
+        length_scale: float = 1.0, noise_scale_w: float = 1.0,
+    ):
+        """Text encoder + SDP reverse -> (w_ceil [B, T_x, 1], x_h [B, T_x,
+        H], m_p, logs_p [B, T_x, C], x_mask [B, T_x, 1], g [B, 1, gin] or
+        None)."""
+        out = self._durations(x, t, x_lengths, sid, noise, generator, length_scale, noise_scale_w)
+        return tuple(None if a is None else a.transpose(1, 2) for a in out)
+
+    def infer_lr(self, w_ceil, m_p, logs_p, x_mask, max_frames: int = 2000):
+        """Length regulation, channels-last: w_ceil [B, T_x, 1] -> (m_p_exp,
+        logs_p_exp [B, max_frames, C], y_mask [B, max_frames, 1])."""
+        out = self._length_regulate(
+            w_ceil[..., 0], m_p.transpose(1, 2), logs_p.transpose(1, 2),
+            x_mask.transpose(1, 2), max_frames,
+        )
+        return tuple(a.transpose(1, 2) for a in out)
+
+    def infer_post_lr_pre_decoder(
+        self, m_p, logs_p, g, y_mask, *, noise=None, generator=None,
+        noise_scale: float = 1.0, scope_shift: int = 0,
+    ):
+        """Prior sample + reverse flow + scope crop, channels-last: m_p,
+        logs_p [B, T_y, C], g [B, 1, gin] or None, y_mask [B, T_y, 1] ->
+        (decoder inputs [B, T_y, C_dec], y_mask, (z_crop, z, z_p, m_p,
+        logs_p))."""
+        b, t_y, _ = m_p.shape
+        eps = self._noise(noise, "eps", (b, t_y, self.inter_channels), generator)
+        dec_in, y_mask, aux = self._flow_and_crop(
+            m_p.transpose(1, 2), logs_p.transpose(1, 2), y_mask.transpose(1, 2),
+            None if g is None else g.transpose(1, 2), eps.transpose(1, 2), noise_scale,
+            scope_shift,
+        )
+        return dec_in.transpose(1, 2), y_mask.transpose(1, 2), tuple(a.transpose(1, 2) for a in aux)
+
+    # -- misc ------------------------------------------------------------
+
+    def yin_dec_infer(self, z_yin, z_mask, sid=None, *, noise=None, generator=None):
+        """Yin decoder reconstruction at a random scope shift (evaluation):
+        z_yin [B, T, C_yin], z_mask [B, T, 1] -> [B, T, yin_scope]."""
+        out = self.yin_decoder.infer(
+            z_yin.transpose(1, 2), z_mask.transpose(1, 2), self._speaker_embedding(sid),
+            shift=None if noise is None else noise.get("scope_shift"), generator=generator,
+        )
+        return out.transpose(1, 2)
+
+    def voice_conversion(
+        self, y, ying, y_lengths, sid_src, sid_tgt, *, noise=None, generator=None,
+        scope_shift: int = 0,
+    ):
+        """Source speaker -> target speaker via the shared flow: both
+        posteriors (spec + yin) feed the flow, the decoder input is
+        scope-cropped as in inference. y: [B, T, spec]; ying: [B, T, yin] ->
+        (waveform [B, T * hop, 1], y_mask [B, T, 1], (z, z_p, z_hat))."""
+        if self.n_speakers <= 0:
+            raise ValueError("voice conversion needs a multi-speaker model (n_speakers > 0)")
+        b, t_y = y.shape[:2]
+        spec_ch = self.inter_channels - self.yin_channels
+        g_src = self._speaker_embedding(sid_src)
+        g_tgt = self._speaker_embedding(sid_tgt)
+        eps_spec = self._noise(noise, "eps_spec", (b, t_y, spec_ch), generator)
+        z_spec, _, _, y_mask = self.posterior_encoder(
+            y.transpose(1, 2), y_lengths, g=g_src, eps=eps_spec.transpose(1, 2)
+        )
+        eps_yin = self._noise(noise, "eps_yin", (b, t_y, self.yin_channels), generator)
+        z_yin, _, _, _ = self.pitch_encoder(
+            ying.transpose(1, 2), y_lengths, g=g_src, eps=eps_yin.transpose(1, 2)
+        )
+        z = torch.cat([z_spec, z_yin], dim=1)
+        z_p = self.flow(z, y_mask, g=g_src)
+        z_hat = self.flow(z_p, y_mask, g=g_tgt, reverse=True)
+        z_crop = torch.cat([z_hat[:, :spec_ch], self._crop0(z_hat[:, spec_ch:], scope_shift)], dim=1)
+        o_hat = self.waveform_decoder(z_crop * y_mask, g=g_tgt)
+        return (
+            o_hat.transpose(1, 2), y_mask.transpose(1, 2),
+            (z.transpose(1, 2), z_p.transpose(1, 2), z_hat.transpose(1, 2)),
+        )
 
 
 def build_synthesizer(

@@ -1,7 +1,8 @@
 """Yin decoder: reconstructs the scope-cropped yingram from z_yin under a
 per-sample integer scope shift (port of ``vits_tpu/models/ying_decoder.py``).
 The shift, uniform on [-yin_shift_range, yin_shift_range) as the JAX
-``randint`` draws it, is passed in. Layout NCL, masks [B, 1, T].
+``randint`` draws it, is passed in (``infer`` draws it from a generator when
+it is not). Layout NCL, masks [B, 1, T].
 """
 
 from __future__ import annotations
@@ -45,6 +46,15 @@ class YingDecoder(nn.Module):
         x = self.pre(z_yin_crop) * z_mask
         x = self.dec(x, z_mask, g=g)
         return self.proj(x) * z_mask
+
+    def infer(self, z_yin, z_mask, g=None, *, shift=None, generator=None):
+        """Random-shift crop + decode. z_yin: [B, C_yin, T]; shift: [B] int,
+        drawn from ``generator`` (``draw_shift``) when None -> [B, yin_scope, T]."""
+        if shift is None:
+            shift = self.draw_shift(z_yin.shape[0], generator, z_yin.device)
+        shift = torch.as_tensor(shift, device=z_yin.device)
+        z_yin_crop = crop_channels(z_yin, self.yin_start, self.yin_scope, shift)
+        return self._decode(z_yin_crop, z_mask, g)
 
     def forward(self, z_yin, yin_gt, z_mask, g=None, scope_shift=None):
         """z_yin, yin_gt: [B, C_yin, T]; scope_shift: [B] int -> (yin_gt_crop,

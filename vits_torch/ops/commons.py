@@ -80,6 +80,24 @@ def rand_slice_segments_for_cat(
     return slice_segments(x, ids_str, segment_size), ids_str
 
 
+def intersperse_with_language_id(text, lang, item):
+    """Blank-interleave a symbol-id list with per-char language ids (lists
+    or numpy). Blanks take the language id of the next character; the
+    final blank repeats the last one."""
+    n = len(text)
+    out_text = [item] * (2 * n + 1)
+    out_lang = [None] * (2 * n + 1)
+    out_text[1::2] = text
+    out_lang[1::2] = lang
+    out_lang[::2] = list(lang) + [lang[-1]]
+    return out_text, out_lang
+
+
+def subsequent_mask(length: int) -> torch.Tensor:
+    """Lower-triangular causal mask [1, 1, T, T]."""
+    return torch.tril(torch.ones(length, length))[None, None]
+
+
 def crop_scope(
     x: torch.Tensor, yin_start: int, yin_scope: int, scope_shift: torch.Tensor
 ) -> torch.Tensor:
