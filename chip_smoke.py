@@ -48,6 +48,20 @@ to the CPU):
                launched 0 times; then the tiny test
                configuration's engine on the card and on the CPU with the
                same weights and noise, TF32 off: audio held to the CPU's
+  8. train run the training entry point, training/train.py::main, in this
+               process at the full width and depth of configs/config_cje.yaml
+               with its own train section (batch 64, bf16, segment 8192,
+               flagship Avocodo D): 128 training and 16 validation synthetic
+               voices of 301-400 frames with ZH/JA/EN/mixed texts over the
+               5 speakers, preprocessed and feature-cached by the port; 2
+               epochs of 2 steps with evaluate and a checkpoint every 2
+               steps; then a resumed run to 3 epochs from the same directory;
+               then TTSEngine serves the newest eval_{step} (strict load).
+               Step times, loader waits, peak memory, losses, evaluate and
+               checkpoint times; mas_fused once a train step and once a
+               validation batch, the pair never
+Then no process the phases started (loader workers, nvcc) may be left
+running: any still alive after 10 s is killed and the script fails.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Every number printed carries the card's
@@ -57,7 +71,10 @@ name and power limit. Needs a CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -95,6 +112,42 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def descendants() -> dict[int, str]:
+    """{pid: command line} of every live process below this one (/proc)."""
+    children: dict[int, list[int]] = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            state, ppid = stat.read_text().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError, IndexError):
+            continue
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(stat.parent.name))
+    found, todo = {}, list(children.get(os.getpid(), []))
+    while todo:
+        pid = todo.pop()
+        try:
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode().strip()
+        except OSError:
+            continue
+        found[pid] = cmd
+        todo += children.get(pid, [])
+    return found
+
+
+def stop_descendants(wait_s: float = 10.0) -> dict[int, str]:
+    """Waits up to wait_s for the processes the phases started to end, kills
+    those still alive, and returns them."""
+    deadline = time.perf_counter() + wait_s
+    while (left := descendants()) and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return left
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -928,6 +981,187 @@ def check_serve_card_against_cpu(card, seed):
     return worst
 
 
+RUN_TRAIN, RUN_VAL, RUN_FRAMES = 128, 16, (301, 400)
+RUN_TEXTS = [
+    "[ZH]今天天气很好，我们一起去公园散步吧。[ZH]",
+    "[ZH]欢迎来到北京，希望你喜欢这座城市。[ZH]",
+    "[JA]こんにちは、今日は東京で友達と会います。[JA]",
+    "[JA]新しい図書館は駅の東口から歩いて五分です。[JA]",
+    "[EN]The quick brown fox jumps over the lazy dog.[EN]",
+    "[EN]Please remember to bring your umbrella this afternoon.[EN]",
+    "[ZH]你好[ZH][EN]nice to meet you[EN][JA]よろしく[JA]",
+    "[EN]Good morning[EN][ZH]早上好[ZH]",
+]
+
+
+def write_run_dataset(root: Path, hps, seed: int):
+    """RUN_TRAIN + RUN_VAL int16 synthetic voices of RUN_FRAMES frames (all in
+    the (300, 400] bucket) and raw filelists (path|speaker|tagged text)."""
+    import scipy.io.wavfile
+
+    d = hps.data
+    rng = np.random.default_rng(seed)
+    (root / "wavs").mkdir(parents=True)
+    lines = []
+    for i in range(RUN_TRAIN + RUN_VAL):
+        frames = int(rng.integers(RUN_FRAMES[0], RUN_FRAMES[1] + 1))
+        wav = synthetic_voice(frames * d.hop_length, d.sampling_rate, seed + i)
+        name = f"wavs/utt{i:03d}.wav"
+        scipy.io.wavfile.write(root / name, d.sampling_rate, (wav * 32767).astype(np.int16))
+        lines.append(f"{name}|{d.speakers[i % len(d.speakers)]}|{RUN_TEXTS[i % len(RUN_TEXTS)]}")
+    (root / "train.csv").write_text("\n".join(lines[:RUN_TRAIN]) + "\n", encoding="utf-8")
+    (root / "val.csv").write_text("\n".join(lines[RUN_TRAIN:]) + "\n", encoding="utf-8")
+
+
+def check_train_run(card, config_path, seed):
+    """Phase 8: the training entry point at full CJE width, its resume, and
+    the engine serving what it saved."""
+    import yaml
+
+    from vits_torch.config import load_hparams
+    from vits_torch.data.cache_features import main as cache_main
+    from vits_torch.data.dataset import DistributedBucketSampler
+    from vits_torch.data.preprocess import preprocess_filelist
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops import mas_cuda
+    from vits_torch.serve.engine import TTSEngine
+    from vits_torch.training.checkpoint import latest_checkpoint
+    from vits_torch.training.train import build_dataset, build_discriminator
+    from vits_torch.training.train import main as train_main
+    from vits_torch.utils.logging_utils import have_matplotlib
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phase 5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    base = yaml.safe_load(Path(config_path).read_text())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        hps0 = load_hparams(config_path)
+        write_run_dataset(root, hps0, seed)
+        t0 = time.perf_counter()
+        for split in ("train", "val"):
+            preprocess_filelist(str(root / f"{split}.csv"))
+        out["preprocess_s"] = time.perf_counter() - t0
+        cfg = dict(base)
+        cfg["data"] = dict(base["data"], data_path=str(root),
+                           training_files=str(root / "train.clr.csv"),
+                           validation_files=str(root / "val.clr.csv"))
+        cfg["train"] = dict(base["train"], epochs=2, log_interval=2, eval_interval=2,
+                            save_interval=2)
+        cfg_path = root / "config.yaml"
+        cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
+        t0 = time.perf_counter()
+        cache_main(["-c", str(cfg_path)])
+        out["cache_s"] = time.perf_counter() - t0
+        hps = load_hparams(str(cfg_path))
+        t = hps.train
+        val_ds = build_dataset(hps, "val")
+        val_batches = len(DistributedBucketSampler(
+            val_ds.lengths, min(t.batch_size, len(val_ds)), hps.data.bucket_boundaries,
+            shuffle=False))
+        print(f"{card} | train run data: {RUN_TRAIN} + {RUN_VAL} synthetic voices of "
+              f"{RUN_FRAMES[0]}-{RUN_FRAMES[1]} frames, {len(RUN_TEXTS)} texts, "
+              f"{len(hps.data.speakers)} speakers; preprocess {out['preprocess_s']:.2f} s, "
+              f"cache_features {out['cache_s']:.2f} s; {val_batches} validation batch(es); "
+              f"summaries: tensorboard {importlib.util.find_spec('tensorboard') is not None}, "
+              f"matplotlib {have_matplotlib()}")
+        model_dir = str(root / "run")
+
+        def train(epochs, label):
+            cfg["train"]["epochs"] = epochs
+            cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
+            for k in mas_cuda.launches:
+                mas_cuda.launches[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rep = train_main(["-c", str(cfg_path), "-m", model_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(mas_cuda.launches)
+            peak = torch.cuda.max_memory_allocated()
+            steps = rep.state.step - rep.start_step
+            want = {"mas_fused": steps + len(rep.evals) * val_batches, "mas_forward": 0,
+                    "mas_backtrack": 0}
+            print(f"{card} | train run {label}: steps {rep.start_step + 1}-{rep.state.step} "
+                  f"(epochs {rep.start_epoch}-{epochs - 1}, B={t.batch_size}, bf16 "
+                  f"{t.bf16_run}, segment {t.segment_size}) in {wall:.2f} s of wall; StepTimer "
+                  f"intervals " + ", ".join(f"{s * 1e3:.2f}" for s in rep.step_s)
+                  + " ms (host clock, steps 2 on: a step's interval leaves out evaluate and "
+                  f"saves and holds an epoch's loader restart); loader waits " + ", ".join(f"{s * 1e3:.2f}" for s in
+                                                                  rep.data_wait_s)
+                  + f" ms ({sum(rep.data_wait_s[1:]) / sum(rep.step_s):.4f} of the step "
+                  f"intervals after the first batch); peak memory {peak / 2**30:.2f} GiB; MAS "
+                  f"launches {launches}")
+            for tag, m in (("first", rep.first_metrics), ("last", rep.last_metrics)):
+                print(f"{card} | train run {label} {tag} step: "
+                      + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+            for e in rep.evals:
+                print(f"{card} | train run {label} evaluate at step {e['step']}: {e['s']:.2f} s, "
+                      + ", ".join(f"{k} {v:.5g}" for k, v in e["scalars"].items()))
+            for c in rep.checkpoints:
+                print(f"{card} | train run {label} checkpoint at step {c['step']}: "
+                      f"{c['s']:.2f} s, " + ", ".join(f"{Path(p).name} {b / 2**20:.1f} MiB"
+                                                     for p, b in c["bytes"].items()))
+            if launches != want:
+                raise AssertionError(f"train run {label}: MAS launches {launches}, want {want}")
+            if not all(np.isfinite(v) for m in (rep.first_metrics, rep.last_metrics)
+                       for v in m.values()):
+                raise AssertionError(f"train run {label}: a loss is not finite")
+            return rep, dict(wall_s=wall, peak_bytes=peak, launches=launches,
+                             step_s=rep.step_s, data_wait_s=rep.data_wait_s,
+                             evals=rep.evals, first=rep.first_metrics, last=rep.last_metrics,
+                             checkpoints=[dict(step=c["step"], s=c["s"],
+                                               bytes=sum(c["bytes"].values()))
+                                          for c in rep.checkpoints])
+
+        rep, out["train"] = train(2, "2 epochs")
+        if rep.start_step != 0 or rep.state.step != 4 or len(rep.evals) != 2 \
+                or len(rep.checkpoints) != 2:
+            raise AssertionError(f"train run: steps {rep.start_step}-{rep.state.step}, "
+                                 f"{len(rep.evals)} evaluations, {len(rep.checkpoints)} saves")
+        torch.manual_seed(t.seed)  # the run's initial weights
+        init = [p for m in (build_synthesizer(hps, bf16=t.bf16_run),
+                            build_discriminator(hps, t.bf16_run, "cuda"))
+                for p in m.parameters()]
+        moved = [not torch.equal(a, p.detach()) for a, p in zip(
+            init, (p for m in (rep.state.model, rep.state.disc) for p in m.parameters()))]
+        print(f"{card} | train run: {sum(moved)} of {len(moved)} parameter tensors moved")
+        if not all(moved):
+            raise AssertionError(f"train run: {len(moved) - sum(moved)} tensors never moved")
+        del rep, init
+        torch.cuda.empty_cache()
+
+        rep, out["resume"] = train(3, "resumed to 3 epochs")
+        # the saved epoch (1) runs again: steps 5-8 over epochs 1 and 2
+        if rep.start_step != 4 or rep.start_epoch != 1 or rep.state.step != 8:
+            raise AssertionError(f"resume: from step {rep.start_step} epoch "
+                                 f"{rep.start_epoch} to step {rep.state.step}")
+        trained = {k: v.detach().clone() for k, v in rep.state.model.state_dict().items()}
+        del rep
+        torch.cuda.empty_cache()
+
+        newest = latest_checkpoint(model_dir, "eval")
+        eng = TTSEngine(str(cfg_path), checkpoint_path=newest, max_frames=1000)
+        same = all(torch.equal(v, trained[k]) for k, v in eng.model.state_dict().items())
+        text = RUN_TEXTS[4]
+        ms, (_, (rate, audio)) = wall_stats(lambda: eng.synthesize(text, 1, seed=seed), n=3)
+        _, (_, chunked) = eng.synthesize_chunked(text, 1, seed=seed)
+        hop = hps.data.hop_length
+        print(f"{card} | train run serve {Path(newest).name}: strict load, weights equal to the "
+              f"trained generator: {same}; synthesize {text!r}: {len(audio) / rate:.3f} s of "
+              f"audio, median {ms[0]:.2f} ms (n=3), length equal to synthesize_chunked: "
+              f"{len(audio) == len(chunked)}")
+        if not same or audio.ndim != 1 or not 0 < len(audio) < 1000 * hop \
+                or len(audio) % hop or len(audio) != len(chunked) or not np.isfinite(audio).all():
+            raise AssertionError("train run: the engine does not serve the saved generator")
+        out["serve_ms"] = ms
+        del eng, trained
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -971,6 +1205,12 @@ def main() -> int:
     check_card_against_cpu(card, args.seed)
     check_train_card_against_cpu(card, args.seed)
     serve = check_serve(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
+    run = check_train_run(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
+    left = stop_descendants()
+    print(f"{card} | processes left running by the phases: "
+          f"{left if left else 'none'}")
+    if left:
+        raise AssertionError(f"the phases left {len(left)} process(es) running (now killed)")
 
     kernels = []
     # mas_fused replaces both Pallas kernels; the pair is off the main path
@@ -990,6 +1230,8 @@ def main() -> int:
             },
             "launches_per_forward": forward_launches[name],
             "launches_in_serve": serve["mas_launches"][name],
+            # phase 8: the train CLI, 4 steps + 2 evaluations, then resumed for 4 more
+            "launches_in_train_run": {k: run[k]["launches"][name] for k in ("train", "resume")},
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))
@@ -1001,4 +1243,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_descendants(wait_s=0.0)  # a failed phase may leave workers
+    sys.exit(rc)

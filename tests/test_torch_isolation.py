@@ -56,6 +56,21 @@ def test_port_source_names_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+def test_orbax_converter_stays_outside_the_port():
+    """tools/orbax_to_torch.py reads the JAX package's checkpoints (orbax
+    imports JAX), so it is no port source and nothing of the port imports
+    it; it imports the JAX package only inside its conversion function."""
+    tool = ROOT / "tools" / "orbax_to_torch.py"
+    assert tool not in _port_sources()
+    for path in _port_sources():
+        assert "orbax_to_torch" not in path.read_text(), path
+    top = [n for n in ast.parse(tool.read_text()).body
+           if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top for a in n.names] + [n.module or "" for n in top
+                                                      if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN]
+
+
 def test_default_device_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the default device is valid here")
@@ -64,6 +79,10 @@ def test_default_device_needs_a_card():
         build_synthesizer(hps)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SynthesizerTrn(**_tiny_kwargs())
+    from vits_torch.training.train import run
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(hps)
 
 
 def test_symbols_copy_keeps_the_reference_inventory():

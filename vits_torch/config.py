@@ -1,12 +1,16 @@
 """Config system: YAML -> nested attr-dict HParams.
 
 The port's own copy of ``vits_tpu/config.py`` (the port imports nothing of
-the JAX package): the same ``HParams`` access semantics and the same
+the JAX package): the same ``HParams`` access semantics, the same
+``get_hparams`` snapshot of a run's config and the same
 ``synthesizer_kwargs`` mapping, so one YAML file builds the same model in
 both packages.
 """
 
 from __future__ import annotations
+
+import os
+import shutil
 
 import yaml
 
@@ -58,6 +62,17 @@ def load_hparams(config_path: str) -> HParams:
     with open(config_path) as f:
         data = yaml.safe_load(f)
     return HParams(**data)
+
+
+def get_hparams(config_path: str, model_dir: str) -> HParams:
+    """Load config, snapshot it into model_dir (reference utils.py:197-211)."""
+    os.makedirs(model_dir, exist_ok=True)
+    snapshot = os.path.join(model_dir, "config.yaml")
+    if os.path.abspath(config_path) != os.path.abspath(snapshot):
+        shutil.copyfile(config_path, snapshot)
+    hps = load_hparams(config_path)
+    hps.model_dir = model_dir
+    return hps
 
 
 def synthesizer_kwargs(hps: HParams, num_chars: int) -> dict:

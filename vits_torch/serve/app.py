@@ -57,7 +57,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("-p", "--checkpoint", default=None,
-                        help="generator state_dict saved by torch.save")
+                        help="eval_{step} checkpoint or generator state_dict")
     parser.add_argument("--port", type=int, default=7860)
     parser.add_argument("--device", default=None, help="default: cuda")
     return parser.parse_args(argv)

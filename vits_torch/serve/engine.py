@@ -36,6 +36,7 @@ from vits_torch.ops.commons import intersperse_with_language_id
 from vits_torch.text import cleaned_text_to_sequence
 from vits_torch.text.cleaners import clean_text
 from vits_torch.text.symbols import symbols
+from vits_torch.training.checkpoint import load_eval_params
 
 NOISE_SCALE, NOISE_SCALE_W = 0.667, 0.8
 
@@ -46,9 +47,10 @@ def _seed(seed) -> int:
 
 
 class TTSEngine:
-    """Loads a config (and optionally a generator ``state_dict`` saved by
-    ``torch.save``) and synthesizes speech; without a checkpoint the weights
-    are PyTorch's initialization under the current torch seed.
+    """Loads a config (and optionally a checkpoint: an ``eval_{step}`` file of
+    ``training/checkpoint.py``, or a generator ``state_dict`` saved by
+    ``torch.save``; strict) and synthesizes speech; without a checkpoint the
+    weights are PyTorch's initialization under the current torch seed.
 
     Arbitrary-length input: text pads up to TEXT_BUCKETS; text longer than
     the largest bucket is split at phrase boundaries and the pieces are
@@ -81,8 +83,7 @@ class TTSEngine:
         self.hps = load_hparams(config_path)
         self.model = build_synthesizer(self.hps, device=self.device, bf16=bf16)
         if checkpoint_path is not None:
-            state = torch.load(checkpoint_path, map_location=self.device, weights_only=True)
-            self.model.load_state_dict(state)
+            self.model.load_state_dict(load_eval_params(checkpoint_path, self.device))
         self.model.eval()
         self.max_frames = max_frames
         self.sampling_rate = self.hps.data.sampling_rate
@@ -452,7 +453,7 @@ def main():
     parser = argparse.ArgumentParser(description="vits_torch synthesis CLI")
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("-p", "--checkpoint", default=None,
-                        help="generator state_dict saved by torch.save")
+                        help="eval_{step} checkpoint or generator state_dict")
     parser.add_argument("-t", "--text", required=True,
                         help="tagged text, e.g. '[EN]hello[EN]'")
     parser.add_argument("-o", "--output", default="out.wav")

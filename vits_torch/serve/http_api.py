@@ -116,7 +116,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("-p", "--checkpoint", default=None,
-                        help="generator state_dict saved by torch.save")
+                        help="eval_{step} checkpoint or generator state_dict")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--bf16", action="store_true")
