@@ -60,8 +60,26 @@ to the CPU):
                Step times, loader waits, peak memory, losses, evaluate and
                checkpoint times; mas_fused once a train step and once a
                validation batch, the pair never
-Then no process the phases started (loader workers, nvcc) may be left
-running: any still alive after 10 s is killed and the script fails.
+  9. ddp       (a) the train CLI under torchrun with --distributed, world 1
+               over NCCL, on phase 8's corpus and config (2 epochs, B=64,
+               bf16): exit 0, no process of the run left, its logged losses
+               at steps 2 and 4 those of phase 8's first run (rtol 1e-3), its
+               eval_4 served by TTSEngine (strict load), wall time, peak
+               memory and MAS launches from its train.log; (b) two ranks on
+               the one card over gloo (spawned, joined), phase 6's tiny
+               configuration with rank 0's rows long and rank 1's short:
+               one DDP train_step a rank against one process's train_step on
+               the global batch with the same noise, TF32 off (phase 6's
+               tolerances for metrics and gradients; updated parameters
+               within 1e-3 of the update's norm on the elements whose
+               gradient sign is settled, elsewhere 2.01 x lr),
+               mas_fused once a rank; then graft_entry.entry() and
+               graft_entry.dryrun_multichip(2) on the card, and the host
+               MAS (ops/mas_native.py) against maximum_path_torch at phase
+               2's main-path shape, exactly
+Then no process the phases started (loader workers, nvcc, torchrun, ranks)
+may be left running: any still alive after 10 s is killed and the script
+fails.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Every number printed carries the card's
@@ -548,7 +566,7 @@ def tiny_train_step_pair(seed, **train):
     masks), TF32 off, cuDNN deterministic; ``train`` overrides entries of
     hps.train (loss weights). Returns (hps, (cpu, card) states, metrics,
     generator outputs)."""
-    from vits_torch.config import HParams
+    from vits_torch.graft_entry import tiny_hps
     from vits_torch.models.avocodo import probe_discriminator
     from vits_torch.models.synthesizer import SynthesizerTrn
     from vits_torch.ops.phaseaug import sample_phi
@@ -557,12 +575,7 @@ def tiny_train_step_pair(seed, **train):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    hps = HParams(
-        train={**dict(learning_rate=2e-4, betas=[0.8, 0.99], eps=1e-9, lr_decay=0.999875,
-                      segment_size=2048, c_mel=45, c_kl=1.0, c_yin=45.0), **train},
-        data=dict(filter_length=1024, hop_length=256, win_length=1024, n_mel_channels=80,
-                  mel_fmin=0.0, mel_fmax=None, sampling_rate=22050),
-    )
+    hps = tiny_hps(**train)
     rng = np.random.default_rng(seed)
     b, t_x, t_y = 2, 9, 16
     batch = {
@@ -1013,9 +1026,10 @@ def write_run_dataset(root: Path, hps, seed: int):
     (root / "val.csv").write_text("\n".join(lines[RUN_TRAIN:]) + "\n", encoding="utf-8")
 
 
-def check_train_run(card, config_path, seed):
+def check_train_run(card, config_path, seed, root: Path):
     """Phase 8: the training entry point at full CJE width, its resume, and
-    the engine serving what it saved."""
+    the engine serving what it saved; the corpus and the run stay in
+    ``root`` for phase 9."""
     import yaml
 
     from vits_torch.config import load_hparams
@@ -1035,131 +1049,431 @@ def check_train_run(card, config_path, seed):
     torch.backends.cudnn.deterministic = False
     base = yaml.safe_load(Path(config_path).read_text())
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        hps0 = load_hparams(config_path)
-        write_run_dataset(root, hps0, seed)
-        t0 = time.perf_counter()
-        for split in ("train", "val"):
-            preprocess_filelist(str(root / f"{split}.csv"))
-        out["preprocess_s"] = time.perf_counter() - t0
-        cfg = dict(base)
-        cfg["data"] = dict(base["data"], data_path=str(root),
-                           training_files=str(root / "train.clr.csv"),
-                           validation_files=str(root / "val.clr.csv"))
-        cfg["train"] = dict(base["train"], epochs=2, log_interval=2, eval_interval=2,
-                            save_interval=2)
-        cfg_path = root / "config.yaml"
+    hps0 = load_hparams(config_path)
+    write_run_dataset(root, hps0, seed)
+    t0 = time.perf_counter()
+    for split in ("train", "val"):
+        preprocess_filelist(str(root / f"{split}.csv"))
+    out["preprocess_s"] = time.perf_counter() - t0
+    cfg = dict(base)
+    cfg["data"] = dict(base["data"], data_path=str(root),
+                       training_files=str(root / "train.clr.csv"),
+                       validation_files=str(root / "val.clr.csv"))
+    cfg["train"] = dict(base["train"], epochs=2, log_interval=2, eval_interval=2,
+                        save_interval=2)
+    cfg_path = root / "config.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
+    t0 = time.perf_counter()
+    cache_main(["-c", str(cfg_path)])
+    out["cache_s"] = time.perf_counter() - t0
+    hps = load_hparams(str(cfg_path))
+    t = hps.train
+    val_ds = build_dataset(hps, "val")
+    val_batches = len(DistributedBucketSampler(
+        val_ds.lengths, min(t.batch_size, len(val_ds)), hps.data.bucket_boundaries,
+        shuffle=False))
+    print(f"{card} | train run data: {RUN_TRAIN} + {RUN_VAL} synthetic voices of "
+          f"{RUN_FRAMES[0]}-{RUN_FRAMES[1]} frames, {len(RUN_TEXTS)} texts, "
+          f"{len(hps.data.speakers)} speakers; preprocess {out['preprocess_s']:.2f} s, "
+          f"cache_features {out['cache_s']:.2f} s; {val_batches} validation batch(es); "
+          f"summaries: tensorboard {importlib.util.find_spec('tensorboard') is not None}, "
+          f"matplotlib {have_matplotlib()}")
+    model_dir = str(root / "run")
+
+    def train(epochs, label):
+        cfg["train"]["epochs"] = epochs
         cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
+        for k in mas_cuda.launches:
+            mas_cuda.launches[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cache_main(["-c", str(cfg_path)])
-        out["cache_s"] = time.perf_counter() - t0
-        hps = load_hparams(str(cfg_path))
-        t = hps.train
-        val_ds = build_dataset(hps, "val")
-        val_batches = len(DistributedBucketSampler(
-            val_ds.lengths, min(t.batch_size, len(val_ds)), hps.data.bucket_boundaries,
-            shuffle=False))
-        print(f"{card} | train run data: {RUN_TRAIN} + {RUN_VAL} synthetic voices of "
-              f"{RUN_FRAMES[0]}-{RUN_FRAMES[1]} frames, {len(RUN_TEXTS)} texts, "
-              f"{len(hps.data.speakers)} speakers; preprocess {out['preprocess_s']:.2f} s, "
-              f"cache_features {out['cache_s']:.2f} s; {val_batches} validation batch(es); "
-              f"summaries: tensorboard {importlib.util.find_spec('tensorboard') is not None}, "
-              f"matplotlib {have_matplotlib()}")
-        model_dir = str(root / "run")
+        rep = train_main(["-c", str(cfg_path), "-m", model_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(mas_cuda.launches)
+        peak = torch.cuda.max_memory_allocated()
+        steps = rep.state.step - rep.start_step
+        want = {"mas_fused": steps + len(rep.evals) * val_batches, "mas_forward": 0,
+                "mas_backtrack": 0}
+        print(f"{card} | train run {label}: steps {rep.start_step + 1}-{rep.state.step} "
+              f"(epochs {rep.start_epoch}-{epochs - 1}, B={t.batch_size}, bf16 "
+              f"{t.bf16_run}, segment {t.segment_size}) in {wall:.2f} s of wall; StepTimer "
+              f"intervals " + ", ".join(f"{s * 1e3:.2f}" for s in rep.step_s)
+              + " ms (host clock, steps 2 on: a step's interval leaves out evaluate and "
+              f"saves and holds an epoch's loader restart); loader waits " + ", ".join(f"{s * 1e3:.2f}" for s in
+                                                              rep.data_wait_s)
+              + f" ms ({sum(rep.data_wait_s[1:]) / sum(rep.step_s):.4f} of the step "
+              f"intervals after the first batch); peak memory {peak / 2**30:.2f} GiB; MAS "
+              f"launches {launches}")
+        for tag, m in (("first", rep.first_metrics), ("last", rep.last_metrics)):
+            print(f"{card} | train run {label} {tag} step: "
+                  + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+        for e in rep.evals:
+            print(f"{card} | train run {label} evaluate at step {e['step']}: {e['s']:.2f} s, "
+                  + ", ".join(f"{k} {v:.5g}" for k, v in e["scalars"].items()))
+        for c in rep.checkpoints:
+            print(f"{card} | train run {label} checkpoint at step {c['step']}: "
+                  f"{c['s']:.2f} s, " + ", ".join(f"{Path(p).name} {b / 2**20:.1f} MiB"
+                                                 for p, b in c["bytes"].items()))
+        if launches != want:
+            raise AssertionError(f"train run {label}: MAS launches {launches}, want {want}")
+        if not all(np.isfinite(v) for m in (rep.first_metrics, rep.last_metrics)
+                   for v in m.values()):
+            raise AssertionError(f"train run {label}: a loss is not finite")
+        return rep, dict(wall_s=wall, peak_bytes=peak, launches=launches,
+                         step_s=rep.step_s, data_wait_s=rep.data_wait_s,
+                         evals=rep.evals, first=rep.first_metrics, last=rep.last_metrics,
+                         checkpoints=[dict(step=c["step"], s=c["s"],
+                                           bytes=sum(c["bytes"].values()))
+                                      for c in rep.checkpoints])
 
-        def train(epochs, label):
-            cfg["train"]["epochs"] = epochs
-            cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
-            for k in mas_cuda.launches:
-                mas_cuda.launches[k] = 0
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            rep = train_main(["-c", str(cfg_path), "-m", model_dir])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(mas_cuda.launches)
-            peak = torch.cuda.max_memory_allocated()
-            steps = rep.state.step - rep.start_step
-            want = {"mas_fused": steps + len(rep.evals) * val_batches, "mas_forward": 0,
-                    "mas_backtrack": 0}
-            print(f"{card} | train run {label}: steps {rep.start_step + 1}-{rep.state.step} "
-                  f"(epochs {rep.start_epoch}-{epochs - 1}, B={t.batch_size}, bf16 "
-                  f"{t.bf16_run}, segment {t.segment_size}) in {wall:.2f} s of wall; StepTimer "
-                  f"intervals " + ", ".join(f"{s * 1e3:.2f}" for s in rep.step_s)
-                  + " ms (host clock, steps 2 on: a step's interval leaves out evaluate and "
-                  f"saves and holds an epoch's loader restart); loader waits " + ", ".join(f"{s * 1e3:.2f}" for s in
-                                                                  rep.data_wait_s)
-                  + f" ms ({sum(rep.data_wait_s[1:]) / sum(rep.step_s):.4f} of the step "
-                  f"intervals after the first batch); peak memory {peak / 2**30:.2f} GiB; MAS "
-                  f"launches {launches}")
-            for tag, m in (("first", rep.first_metrics), ("last", rep.last_metrics)):
-                print(f"{card} | train run {label} {tag} step: "
-                      + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
-            for e in rep.evals:
-                print(f"{card} | train run {label} evaluate at step {e['step']}: {e['s']:.2f} s, "
-                      + ", ".join(f"{k} {v:.5g}" for k, v in e["scalars"].items()))
-            for c in rep.checkpoints:
-                print(f"{card} | train run {label} checkpoint at step {c['step']}: "
-                      f"{c['s']:.2f} s, " + ", ".join(f"{Path(p).name} {b / 2**20:.1f} MiB"
-                                                     for p, b in c["bytes"].items()))
-            if launches != want:
-                raise AssertionError(f"train run {label}: MAS launches {launches}, want {want}")
-            if not all(np.isfinite(v) for m in (rep.first_metrics, rep.last_metrics)
-                       for v in m.values()):
-                raise AssertionError(f"train run {label}: a loss is not finite")
-            return rep, dict(wall_s=wall, peak_bytes=peak, launches=launches,
-                             step_s=rep.step_s, data_wait_s=rep.data_wait_s,
-                             evals=rep.evals, first=rep.first_metrics, last=rep.last_metrics,
-                             checkpoints=[dict(step=c["step"], s=c["s"],
-                                               bytes=sum(c["bytes"].values()))
-                                          for c in rep.checkpoints])
+    rep, out["train"] = train(2, "2 epochs")
+    out.update(cfg=dict(cfg, train=dict(cfg["train"])), val_batches=val_batches,
+               losses=logged_losses(Path(model_dir) / "train.log"))
+    if rep.start_step != 0 or rep.state.step != 4 or len(rep.evals) != 2 \
+            or len(rep.checkpoints) != 2:
+        raise AssertionError(f"train run: steps {rep.start_step}-{rep.state.step}, "
+                             f"{len(rep.evals)} evaluations, {len(rep.checkpoints)} saves")
+    torch.manual_seed(t.seed)  # the run's initial weights
+    init = [p for m in (build_synthesizer(hps, bf16=t.bf16_run),
+                        build_discriminator(hps, t.bf16_run, "cuda"))
+            for p in m.parameters()]
+    moved = [not torch.equal(a, p.detach()) for a, p in zip(
+        init, (p for m in (rep.state.model, rep.state.disc) for p in m.parameters()))]
+    print(f"{card} | train run: {sum(moved)} of {len(moved)} parameter tensors moved")
+    if not all(moved):
+        raise AssertionError(f"train run: {len(moved) - sum(moved)} tensors never moved")
+    del rep, init
+    torch.cuda.empty_cache()
 
-        rep, out["train"] = train(2, "2 epochs")
-        if rep.start_step != 0 or rep.state.step != 4 or len(rep.evals) != 2 \
-                or len(rep.checkpoints) != 2:
-            raise AssertionError(f"train run: steps {rep.start_step}-{rep.state.step}, "
-                                 f"{len(rep.evals)} evaluations, {len(rep.checkpoints)} saves")
-        torch.manual_seed(t.seed)  # the run's initial weights
-        init = [p for m in (build_synthesizer(hps, bf16=t.bf16_run),
-                            build_discriminator(hps, t.bf16_run, "cuda"))
-                for p in m.parameters()]
-        moved = [not torch.equal(a, p.detach()) for a, p in zip(
-            init, (p for m in (rep.state.model, rep.state.disc) for p in m.parameters()))]
-        print(f"{card} | train run: {sum(moved)} of {len(moved)} parameter tensors moved")
-        if not all(moved):
-            raise AssertionError(f"train run: {len(moved) - sum(moved)} tensors never moved")
-        del rep, init
-        torch.cuda.empty_cache()
+    rep, out["resume"] = train(3, "resumed to 3 epochs")
+    # the saved epoch (1) runs again: steps 5-8 over epochs 1 and 2
+    if rep.start_step != 4 or rep.start_epoch != 1 or rep.state.step != 8:
+        raise AssertionError(f"resume: from step {rep.start_step} epoch "
+                             f"{rep.start_epoch} to step {rep.state.step}")
+    trained = {k: v.detach().clone() for k, v in rep.state.model.state_dict().items()}
+    del rep
+    torch.cuda.empty_cache()
 
-        rep, out["resume"] = train(3, "resumed to 3 epochs")
-        # the saved epoch (1) runs again: steps 5-8 over epochs 1 and 2
-        if rep.start_step != 4 or rep.start_epoch != 1 or rep.state.step != 8:
-            raise AssertionError(f"resume: from step {rep.start_step} epoch "
-                                 f"{rep.start_epoch} to step {rep.state.step}")
-        trained = {k: v.detach().clone() for k, v in rep.state.model.state_dict().items()}
-        del rep
-        torch.cuda.empty_cache()
-
-        newest = latest_checkpoint(model_dir, "eval")
-        eng = TTSEngine(str(cfg_path), checkpoint_path=newest, max_frames=1000)
-        same = all(torch.equal(v, trained[k]) for k, v in eng.model.state_dict().items())
-        text = RUN_TEXTS[4]
-        ms, (_, (rate, audio)) = wall_stats(lambda: eng.synthesize(text, 1, seed=seed), n=3)
-        _, (_, chunked) = eng.synthesize_chunked(text, 1, seed=seed)
-        hop = hps.data.hop_length
-        print(f"{card} | train run serve {Path(newest).name}: strict load, weights equal to the "
-              f"trained generator: {same}; synthesize {text!r}: {len(audio) / rate:.3f} s of "
-              f"audio, median {ms[0]:.2f} ms (n=3), length equal to synthesize_chunked: "
-              f"{len(audio) == len(chunked)}")
-        if not same or audio.ndim != 1 or not 0 < len(audio) < 1000 * hop \
-                or len(audio) % hop or len(audio) != len(chunked) or not np.isfinite(audio).all():
-            raise AssertionError("train run: the engine does not serve the saved generator")
-        out["serve_ms"] = ms
-        del eng, trained
-        torch.cuda.empty_cache()
+    newest = latest_checkpoint(model_dir, "eval")
+    eng = TTSEngine(str(cfg_path), checkpoint_path=newest, max_frames=1000)
+    same = all(torch.equal(v, trained[k]) for k, v in eng.model.state_dict().items())
+    text = RUN_TEXTS[4]
+    ms, (_, (rate, audio)) = wall_stats(lambda: eng.synthesize(text, 1, seed=seed), n=3)
+    _, (_, chunked) = eng.synthesize_chunked(text, 1, seed=seed)
+    hop = hps.data.hop_length
+    print(f"{card} | train run serve {Path(newest).name}: strict load, weights equal to the "
+          f"trained generator: {same}; synthesize {text!r}: {len(audio) / rate:.3f} s of "
+          f"audio, median {ms[0]:.2f} ms (n=3), length equal to synthesize_chunked: "
+          f"{len(audio) == len(chunked)}")
+    if not same or audio.ndim != 1 or not 0 < len(audio) < 1000 * hop \
+            or len(audio) % hop or len(audio) != len(chunked) or not np.isfinite(audio).all():
+        raise AssertionError("train run: the engine does not serve the saved generator")
+    out["serve_ms"] = ms
+    del eng, trained
+    torch.cuda.empty_cache()
     return out
+
+
+def logged_losses(log: Path) -> dict[int, tuple[float, float]]:
+    """{step: (g, d)} of a run's train.log, each step's first line."""
+    out = {}
+    for line in log.read_text().splitlines():
+        msg = line.split("\t")[-1]
+        if msg.startswith("step ") and " | g " in msg:
+            step, rest = msg[5:].split(" | g ")
+            g, d = rest.split(" d ")
+            out.setdefault(int(step), (float(g), float(d)))
+    return out
+
+
+def processes_naming(text: str) -> dict[int, str]:
+    """{pid: command line} of live processes whose command line holds text
+    (torchrun starts its ranks in sessions of their own, and loader workers
+    carry their rank's command line)."""
+    found = {}
+    for cmd in Path("/proc").glob("[0-9]*/cmdline"):
+        try:
+            line = cmd.read_bytes().replace(b"\0", b" ").decode()
+            state = (cmd.parent / "stat").read_text().rsplit(")", 1)[1].split()[0]
+        except (OSError, IndexError):
+            continue
+        if text in line and state != "Z" and int(cmd.parent.name) != os.getpid():
+            found[int(cmd.parent.name)] = line
+    return found
+
+
+# phase 8's losses agreed to 4-5 digits across repeated runs on an H100
+# (cuDNN's algorithms are not bitwise deterministic); the log keeps 4
+# decimals of losses of ~1e0-1e2
+DDP_CLI_RTOL = 1e-3
+
+
+def check_ddp_cli(card, root: Path, run: dict):
+    """Phase 9 (a): torchrun --nproc_per_node 1 ... --distributed at full
+    width over NCCL on phase 8's corpus; the same losses as phase 8."""
+    import yaml
+
+    from vits_torch.serve.engine import TTSEngine
+
+    cfg = dict(run["cfg"], train=dict(run["cfg"]["train"], epochs=2))
+    cfg_path = root / "ddp.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
+    model_dir = root / "ddp_run"
+    # --local-addr: the rank meets torchrun's agent on the loopback device, not at
+    # whatever the host's name resolves to
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--local-addr",
+           "127.0.0.1", "--nproc_per_node", "1", "-m", "vits_torch.training.train", "-c",
+           str(cfg_path), "-m", str(model_dir), "--distributed"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    left = processes_naming(str(model_dir))
+    for pid in left:
+        os.kill(pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        raise AssertionError(f"ddp cli: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    if left:
+        raise AssertionError(f"ddp cli: processes left running (now killed): {left}")
+    log = (model_dir / "train.log").read_text()
+    done = [ln.split("\t")[-1] for ln in log.splitlines() if "\trun done at step" in ln]
+    launches = json.loads(done[0].split("kernel launches in this process ")[1]
+                          .split(";")[0].replace("'", '"'))
+    peak_gib = float(done[0].split("peak device memory ")[1].split(" GiB")[0])
+    intervals = [float(v) for v in done[0].split("step intervals ")[1].split(" ms")[0]
+                 .split(", ")]
+    losses = logged_losses(model_dir / "train.log")
+    ref = run["losses"]
+    errs = {s: (abs(losses[s][0] - ref[s][0]) / abs(ref[s][0]),
+                abs(losses[s][1] - ref[s][1]) / abs(ref[s][1])) for s in (2, 4)}
+    want = 4 + 2 * run["val_batches"]
+    print(f"{card} | ddp cli torchrun --nproc_per_node 1 --distributed (NCCL, world 1), phase 8's "
+          f"corpus and config, B={cfg['train']['batch_size']}, 2 epochs: exit 0 in {wall:.2f} s of "
+          f"wall (process start, build, data, 4 steps, 2 evaluations, 2 saves); StepTimer "
+          f"intervals " + ", ".join(f"{v:.2f}" for v in intervals) + f" ms; peak memory "
+          f"{peak_gib:.2f} GiB; MAS launches {launches} (want mas_fused {want}); no process "
+          f"left")
+    for s in (2, 4):
+        print(f"{card} | ddp cli step {s}: g {losses[s][0]:.4f} d {losses[s][1]:.4f}; phase 8 "
+              f"g {ref[s][0]:.4f} d {ref[s][1]:.4f}; relative difference g {errs[s][0]:.3e} "
+              f"d {errs[s][1]:.3e} (tolerance rtol {DDP_CLI_RTOL})")
+    if launches != {"mas_fused": want, "mas_forward": 0, "mas_backtrack": 0}:
+        raise AssertionError(f"ddp cli: MAS launches {launches}, want mas_fused {want}")
+    if any(e > DDP_CLI_RTOL for pair in errs.values() for e in pair):
+        raise AssertionError("ddp cli: losses differ from phase 8's")
+    eng = TTSEngine(str(cfg_path), checkpoint_path=str(model_dir / "eval_4"), max_frames=1000)
+    _, (rate, audio) = eng.synthesize(RUN_TEXTS[4], 1, seed=0)
+    if audio.ndim != 1 or not 0 < len(audio) < 1000 * eng.hop or not np.isfinite(audio).all():
+        raise AssertionError("ddp cli: the engine does not serve eval_4")
+    print(f"{card} | ddp cli serve eval_4: strict load, {len(audio) / rate:.3f} s of audio")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, peak_gib=peak_gib, launches=launches, step_ms=intervals,
+                losses={s: losses[s] for s in (2, 4)}, rel_err=errs)
+
+
+DDP_X_LENGTHS, DDP_SPEC_LENGTHS = [9, 9, 4, 3], [16, 16, 9, 8]  # rank 0 long, rank 1 short
+
+
+def tiny_ddp_setup(seed, payload: Path):
+    """Phase 6's tiny configuration at a global batch of 4 with unequal
+    lengths, its global noise and initial weights, written to ``payload``
+    for the ranks. Returns (hps, payload dict)."""
+    from vits_torch.graft_entry import tiny_hps
+    from vits_torch.models.avocodo import probe_discriminator
+    from vits_torch.models.synthesizer import SynthesizerTrn
+    from vits_torch.ops.phaseaug import sample_phi
+
+    hps = tiny_hps()
+    rng = np.random.default_rng(seed + 9)
+    b, t_x, t_y = 4, 9, 16
+    batch = {
+        "x": rng.integers(1, 30, (b, t_x)), "t": rng.integers(0, 6, (b, t_x)),
+        "x_lengths": np.array(DDP_X_LENGTHS), "spec_lengths": np.array(DDP_SPEC_LENGTHS),
+        "spec": np.abs(rng.standard_normal((b, t_y, 513))).astype(np.float32),
+        "ying": rng.uniform(0, 1, (b, t_y, 80)).astype(np.float32),
+        "wav": (rng.standard_normal((b, t_y * 256, 1)) * 0.1).astype(np.float32),
+        "sid": rng.integers(0, 3, b),
+    }
+    gen = torch.Generator().manual_seed(seed)
+    noise = {
+        "eps_spec": rng.standard_normal((b, t_y, 16)).astype(np.float32),
+        "eps_yin": rng.standard_normal((b, t_y, 80)).astype(np.float32),
+        "scope_shift": rng.integers(-15, 15, b).astype(np.int32),
+        "e_q": rng.standard_normal((b, t_x, 2)).astype(np.float32),
+        "slice_u": rng.uniform(0, 1, b).astype(np.float32),
+        "phi_d": sample_phi(2 * b, gen).numpy(), "phi_g": sample_phi(2 * b, gen).numpy(),
+    }
+    torch.manual_seed(seed)
+    model = SynthesizerTrn(**TINY_TRAIN, device="cpu")
+    disc = probe_discriminator(segment_size=2048, device="cpu")
+    data = {"g": model.state_dict(), "d": disc.state_dict(), "batch": batch, "noise": noise}
+    torch.save(data, payload)
+    return hps, data
+
+
+def tiny_card_state(data, hps):
+    """The tiny models on the card from ``data``'s weights, dropout off, TF32
+    off, cuDNN deterministic (phase 6's settings)."""
+    from vits_torch.models.avocodo import probe_discriminator
+    from vits_torch.models.synthesizer import SynthesizerTrn
+    from vits_torch.training.step import create_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = SynthesizerTrn(**TINY_TRAIN, device="cuda")
+    model.load_state_dict(data["g"])
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    disc = probe_discriminator(segment_size=2048, device="cuda")
+    disc.load_state_dict(data["d"])
+    return create_train_state(model, disc, hps, steps_per_epoch=10)
+
+
+def state_arrays(state) -> dict:
+    return {side: {k: (p.detach().cpu().numpy(), p.grad.cpu().numpy())
+                   for k, p in getattr(state, side).named_parameters()}
+            for side in ("model", "disc")}
+
+
+def ddp_rank_step(payload: str) -> dict:
+    """Phase 9 (b), one rank (a spawned process): its rows of the global
+    batch, one DDP train_step on the card; metrics, parameters, gradients and
+    this process's MAS launches."""
+    from vits_torch.graft_entry import tiny_hps
+    from vits_torch.ops import mas_cuda
+    from vits_torch.parallel import mesh
+    from vits_torch.training.step import replicate_state, train_step
+
+    hps = tiny_hps()
+    data = torch.load(payload, weights_only=False)
+    state = replicate_state(tiny_card_state(data, hps), hps)
+    rows = mesh.rank_rows(data["batch"], mesh.process_index(), mesh.process_count(), 4)
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    metrics = train_step(state, rows, hps, noise=data["noise"])
+    torch.cuda.synchronize()
+    launches = dict(mas_cuda.launches)
+    return {"metrics": {k: v.item() for k, v in metrics.items()}, "state": state_arrays(state),
+            "launches": launches}
+
+
+def check_ddp_two_ranks(card, root: Path, seed):
+    """Phase 9 (b): two ranks on the one card over gloo against one process
+    on the global batch."""
+    from vits_torch.parallel import mesh
+    from vits_torch.training.step import train_step
+
+    payload = root / "ddp_tiny.pt"
+    hps, data = tiny_ddp_setup(seed, payload)
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(ddp_rank_step, 2, str(payload), device="cuda:0", backend="gloo",
+                       timeout=300)
+    wall = time.perf_counter() - t0
+    one = tiny_card_state(data, hps)
+    m_one = {k: v.item() for k, v in train_step(one, data["batch"], hps,
+                                                noise=data["noise"]).items()}
+    s_one = state_arrays(one)
+    got = ranks[0]
+    bad = [k for k in m_one if abs(got["metrics"][k] - m_one[k]) > 1e-4 * abs(m_one[k])]
+    if ranks[1]["metrics"] != got["metrics"]:
+        bad.append("the ranks' metrics differ")
+    lr = hps.train.learning_rate
+    worst = {"grad": 0.0, "settled": 0.0, "rest": 0.0}
+    n_settled = n_all = 0
+    for side in ("model", "disc"):
+        total = m_one[f"grad_norm/{'g' if side == 'model' else 'd'}"]
+        initial = data["g" if side == "model" else "d"]
+        for k, (p_ref, g_ref) in s_one[side].items():
+            p, g = got["state"][side][k]
+            if not (np.array_equal(p, ranks[1]["state"][side][k][0])):
+                bad.append(f"rank 1 {side}.{k} differs from rank 0")
+            g_err = float(np.linalg.norm(g - g_ref))
+            rel = 1e-2 if k.startswith("waveform_decoder.") else 1e-3
+            g_tol = rel * float(np.linalg.norm(g_ref)) + 1e-6 * total
+            if g_err > 1e-6 * total:
+                worst["grad"] = max(worst["grad"], g_err / float(np.linalg.norm(g_ref)))
+            if g_err > g_tol:
+                bad.append(f"grad {side}.{k}")
+            # Adam's first step moves an element by lr * g / (|g| + eps): +-lr
+            # where the gradient's sign is settled (|g_ref| above the tensor's
+            # gradient tolerance, which no passing gradient can cross), any
+            # value in [-lr, lr] where it is ~0. Settled elements must take the
+            # reference's update within 1e-3 of its norm; the rest 2.01 x lr.
+            settled = np.abs(g_ref) > g_tol
+            n_settled, n_all = n_settled + int(settled.sum()), n_all + settled.size
+            if settled.any():
+                p0 = initial[k].numpy()
+                err = float(np.linalg.norm((p - p_ref)[settled])
+                            / np.linalg.norm((p_ref - p0)[settled]))
+                worst["settled"] = max(worst["settled"], err)
+                if err > 1e-3:
+                    bad.append(f"param {side}.{k} (settled)")
+            if not settled.all():
+                err = float(np.abs(p - p_ref)[~settled].max())
+                worst["rest"] = max(worst["rest"], err)
+                if err > 2.01 * lr:
+                    bad.append(f"param {side}.{k}")
+    launches = [r["launches"] for r in ranks]
+    print(f"{card} | ddp two ranks on the card over gloo (spawned, joined in {wall:.2f} s), tiny "
+          f"config + probe D, global batch 4 (x_lengths {DDP_X_LENGTHS}, spec_lengths "
+          f"{DDP_SPEC_LENGTHS}: rank 0 long, rank 1 short), TF32 off, cuDNN deterministic, "
+          f"against one process on the global batch: max relative metric error "
+          f"{max(abs(got['metrics'][k] - m_one[k]) / abs(m_one[k]) for k in m_one):.3e} "
+          f"(rtol 1e-4); gradients, worst relative error above 1e-6 of the global norm "
+          f"{worst['grad']:.3e} (1e-3, decoder 1e-2, of the tensor's norm); updated parameters "
+          f"on the {n_settled} of {n_all} elements whose gradient sign is settled, worst "
+          f"||err|| {worst['settled']:.3e} of the update's norm per tensor (1e-3), elsewhere "
+          f"max|err| {worst['rest']:.3e} (2.01 x lr = {2.01 * lr:.2e}); the ranks' parameters "
+          f"equal; MAS launches per rank {launches}")
+    if bad:
+        raise AssertionError(f"ddp two ranks: {bad[:10]}")
+    if any(ln != {"mas_fused": 1, "mas_forward": 0, "mas_backtrack": 0} for ln in launches):
+        raise AssertionError(f"ddp two ranks: MAS launches {launches}, want mas_fused 1 a rank")
+    return dict(wall_s=wall, launches=launches, worst=worst)
+
+
+def check_entry_and_host_mas(card, main_lengths):
+    """Phase 9, last part: graft_entry.entry() and dryrun_multichip(2) on
+    the card; the host MAS against the plain version at the main-path
+    shape."""
+    from vits_torch import graft_entry
+    from vits_torch.ops import mas, mas_native
+
+    fn, args = graft_entry.entry()
+    wav = fn(*args)
+    torch.cuda.synchronize()
+    ms = host_ms(lambda: fn(*args), iters=5)
+    if tuple(wav.shape) != (1, 256 * 256, 1) or not torch.isfinite(wav).all() \
+            or args[0].device.type != "cuda":
+        raise AssertionError(f"graft_entry.entry(): wav {tuple(wav.shape)} on {wav.device}")
+    print(f"{card} | graft_entry.entry() on {wav.device}: wav {tuple(wav.shape)}, median "
+          f"{ms[0]:.2f} ms (min {ms[1]:.2f}, max {ms[2]:.2f}, n=5; host clock)")
+    del fn, args, wav
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(2)  # its default device: the card
+    wall = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in dry.values()):
+        raise AssertionError(f"graft_entry.dryrun_multichip(2): {dry}")
+    print(f"{card} | graft_entry.dryrun_multichip(2): two gloo ranks on cuda:0 (spawned, "
+          f"joined), one DDP step of the tiny model, {wall:.2f} s of wall")
+    neg, mask, _, _ = mas_case(MAIN_B, MAIN_T_Y, MAIN_T_X, 7, *main_lengths)
+    ref = mas.maximum_path_torch(neg, mask).cpu().numpy()
+    neg_np, mask_np = neg.cpu().numpy(), mask.cpu().numpy()
+    out = mas_native.maximum_path_native(neg_np, mask_np)
+    ms_native = host_ms(lambda: mas_native.maximum_path_native(neg_np, mask_np))
+    err = float(np.abs(out - ref).max())
+    print(f"{card} | host MAS (g++ -O3 -fopenmp, {os.cpu_count()} cores) B={MAIN_B} "
+          f"T_y={MAIN_T_Y} T_x={MAIN_T_X} main-path lengths: max|err| {err} against "
+          f"maximum_path_torch; median {ms_native[0]:.3f} ms (min {ms_native[1]:.3f}, max "
+          f"{ms_native[2]:.3f}, n=10; host clock)")
+    if err:
+        raise AssertionError("host MAS disagrees with the plain version")
+    return dict(entry_ms=ms, host_mas_ms=ms_native)
 
 
 def main() -> int:
@@ -1205,7 +1519,12 @@ def main() -> int:
     check_card_against_cpu(card, args.seed)
     check_train_card_against_cpu(card, args.seed)
     serve = check_serve(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
-    run = check_train_run(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = check_train_run(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed,
+                              Path(tmp))
+        ddp = {"cli": check_ddp_cli(card, Path(tmp), run),
+               "two_ranks": check_ddp_two_ranks(card, Path(tmp), args.seed)}
+    check_entry_and_host_mas(card, lengths)
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")
@@ -1232,6 +1551,12 @@ def main() -> int:
             "launches_in_serve": serve["mas_launches"][name],
             # phase 8: the train CLI, 4 steps + 2 evaluations, then resumed for 4 more
             "launches_in_train_run": {k: run[k]["launches"][name] for k in ("train", "resume")},
+            # phase 9: the CLI under torchrun (world 1, 4 steps + 2 evaluations) and each
+            # of two ranks' one DDP step
+            "launches_in_ddp": {
+                "cli_world_1": ddp["cli"]["launches"][name],
+                "two_ranks": [r[name] for r in ddp["two_ranks"]["launches"]],
+            },
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))

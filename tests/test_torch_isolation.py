@@ -24,6 +24,8 @@ def _port_sources():
         ROOT / "tools" / "probe_mas_fused.py",
         ROOT / "tools" / "probe_step_grads.py",
         ROOT / "tools" / "probe_serve_threads.py",
+        ROOT / "examples" / "quickstart_synthetic_torch.py",
+        ROOT / "examples" / "serve_batched_torch.py",
     ]
 
 
@@ -79,10 +81,17 @@ def test_default_device_needs_a_card():
         build_synthesizer(hps)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SynthesizerTrn(**_tiny_kwargs())
-    from vits_torch.training.train import run
+    from vits_torch.training.train import main, run
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run(hps)
+    # the data-parallel entry: cuda:LOCAL_RANK and NCCL unless --device cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["-c", str(ROOT / "configs" / "config_cje.yaml"), "-m", "unused", "--distributed"])
+    from vits_torch.parallel.mesh import init_distributed
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
 
 
 def test_symbols_copy_keeps_the_reference_inventory():

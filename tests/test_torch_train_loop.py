@@ -394,9 +394,16 @@ def test_step_seeds_are_per_step():
     assert t_train.step_seeds(1, 0) != t_train.step_seeds(2, 0)
 
 
-def test_distributed_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_train.main(["-c", "c.yaml", "-m", str(tmp_path), "--distributed"])
+def test_distributed_is_not_ported_yet(tmp_path, monkeypatch):
+    """``--distributed`` is ported (tests/test_torch_graft_entry.py runs it
+    under torchrun); started outside torchrun it names what is missing
+    before it touches the run's directory."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="needs the environment torchrun sets"):
+        t_train.main(["-c", "c.yaml", "-m", str(tmp_path / "run"), "--distributed",
+                      "--device", "cpu"])
+    assert not (tmp_path / "run").exists()
 
 
 def test_discriminator_size_typo_raises():

@@ -12,7 +12,10 @@ Conventions:
     ``torch.Generator``
   * entry points run on ``cuda`` unless the caller passes ``device="cpu"``
   * the one hand-written kernel (MAS, ``csrc/mas.cu``) is built with ``nvcc``
-    at first use; CPU tensors take its plain PyTorch version
+    at first use; CPU tensors take its plain PyTorch version (the host MAS in
+    C++, ``csrc/mas_host.cpp``, is an oracle that no path calls)
+  * several cards: one process a card under ``torchrun``, DDP over NCCL
+    (``parallel/mesh.py``)
 """
 
 __version__ = "0.1.0"

@@ -63,6 +63,15 @@ def load_wav(full_path: str) -> tuple[np.ndarray, int]:
     return (data / norm).astype(np.float32), sr
 
 
+def _save_cache(path: str, array: np.ndarray) -> None:
+    """np.save's bytes, written to a temporary name and renamed: another
+    process (a loader worker of another rank) never reads half a file."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, array)
+    os.replace(tmp, path)
+
+
 def _spectrogram_numpy(audio: np.ndarray, n_fft: int, hop: int, win: int) -> np.ndarray:
     """Host-side float64 spectrogram matching ops.stft.spectrogram semantics
     (reflect pad, center=False, periodic hann, sqrt(.+1e-6)). [T] -> [T', F]."""
@@ -146,7 +155,7 @@ class TextAudioSpeakerDataset(Dataset):
             spec = _spectrogram_numpy(
                 audio, cfg.filter_length, cfg.hop_length, cfg.win_length
             )
-            np.save(spec_file, spec)
+            _save_cache(spec_file, spec)
 
         if os.path.exists(ying_file) and not pt_run:
             ying = np.load(ying_file)
@@ -165,7 +174,7 @@ class TextAudioSpeakerDataset(Dataset):
                 cfg.tau_max, cfg.tau_max, cfg.midi_start, cfg.midi_end,
                 cfg.octave_range,
             )[0].astype(np.float32)
-            np.save(ying_file, ying)
+            _save_cache(ying_file, ying)
         return spec, ying, audio
 
     def _get_text(self, text: str, lang: str):

@@ -235,11 +235,13 @@ class SynthesizerTrn(nn.Module):
 
     def forward(
         self, x, t, x_lengths, y, y_lengths, ying, sid=None, *, noise=None,
-        generator=None, scope_shift: int = 0,
+        generator=None, scope_shift: int = 0, x_mask_total=None,
     ) -> dict:
         """x, t: [B, T_x] symbol / language ids; x_lengths: [B]; y: [B, T_y,
         spec] linear spectrogram; y_lengths: [B]; ying: [B, T_y, yin]; sid:
-        [B]. Returns the JAX ``__call__`` dict, every tensor channels-last."""
+        [B]. Returns the JAX ``__call__`` dict, every tensor channels-last.
+        ``l_length`` is divided by ``x_mask_total`` where it is given (a
+        data-parallel step's shared denominator), else by ``sum(x_mask)``."""
         b, t_x = x.shape
         t_y = y.shape[1]
         spec_ch = self.inter_channels - self.yin_channels
@@ -296,7 +298,7 @@ class SynthesizerTrn(nn.Module):
         w = attn.sum(dim=1).unsqueeze(1)  # [B, 1, T_x]
         e_q = self._noise(noise, "e_q", (b, t_x, 2), generator)
         l_length = self.duration_predictor(x_h, x_mask, w, g=g, e_q=e_q.transpose(1, 2))
-        l_length = l_length / torch.sum(x_mask)
+        l_length = l_length / (torch.sum(x_mask) if x_mask_total is None else x_mask_total)
 
         # -- expand prior (channels-last) ---------------------------------
         m_p_exp = torch.matmul(attn, m_p.transpose(1, 2))

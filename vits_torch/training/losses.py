@@ -41,12 +41,14 @@ def generator_loss(disc_outputs):
     return loss, gen_losses
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, denom=None) -> torch.Tensor:
     """Masked Gaussian KL between the posterior sample and the expanded
-    prior. All [B, T, C], mask [B, T, 1]."""
+    prior. All [B, T, C], mask [B, T, 1]. The sum is divided by ``denom``
+    where it is given (a data-parallel step's shared denominator), else by
+    ``sum(z_mask)``."""
     z_p, logs_q, m_p, logs_p, z_mask = (
         a.float() for a in (z_p, logs_q, m_p, logs_p, z_mask)
     )
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if denom is None else denom)

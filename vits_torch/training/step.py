@@ -32,6 +32,29 @@ the doubled batch) or one ``torch.Generator``, all drawn before the forward;
 dropout draws from PyTorch's default generator. On a card the MAS inside the
 generator forward is the ``mas_fused`` kernel; the step runs where the models
 are (``cuda`` unless they were built with ``device='cpu'``).
+
+Data parallel (``replicate_state``; ``state.ddp`` holds the DDP wrappers of
+the generator and the discriminator, ``state.model`` and ``state.disc`` stay
+the plain modules). Each rank holds ``B / world`` rows of the global batch,
+padded to the same bucket bound, and the step computes what one process
+computes on the global batch (the JAX step on the sharded global array):
+  * the draws are made for the global batch, from the same generator on
+    every rank, and each rank keeps its rows (``parallel.mesh.rank_rows``);
+  * every loss that is a mean over equal shapes (mel L1, feature matching,
+    LSGAN, yin) has the global mean as the mean of the ranks' means;
+  * the two ratio losses, KL over ``sum(z_mask)`` and the duration loss over
+    ``sum(x_mask)``, divide each rank's numerator by the mean of the ranks'
+    denominators (``ratio_denominator``): each rank's loss is ``world``
+    times its exact share of the global loss, so DDP's gradient average is
+    the gradient of the global loss;
+  * the returned losses are averaged over the ranks (the global values);
+    the gradient norms are read after DDP's all-reduce, and ``nan_guard``
+    decides on the averaged loss and that norm, so every rank keeps or
+    reverts the same update.
+The D step goes through the discriminator's wrapper; the G step applies the
+plain discriminator (frozen), so its reducer waits for no gradient there.
+Every generator and discriminator parameter gets a gradient in a step, so
+DDP needs neither ``find_unused_parameters`` nor ``static_graph``.
 """
 
 from __future__ import annotations
@@ -45,9 +68,10 @@ from torch.utils.checkpoint import checkpoint
 
 from vits_torch.models.avocodo import AvocodoDiscriminator
 from vits_torch.models.synthesizer import FORWARD_NOISE, SynthesizerTrn
-from vits_torch.ops.commons import slice_segments
+from vits_torch.ops.commons import sequence_mask, slice_segments
 from vits_torch.ops.phaseaug import phaseaug_sync, sample_phi
 from vits_torch.ops.stft import mel_spectrogram, spec_to_mel
+from vits_torch.parallel import mesh
 from vits_torch.training import losses as L
 
 BATCH_KEYS = ("x", "t", "x_lengths", "spec", "spec_lengths", "ying", "wav", "sid")
@@ -84,6 +108,21 @@ class TrainState:
     optim_g: torch.optim.AdamW
     optim_d: torch.optim.AdamW
     schedule: Callable[[int], float]
+    # (generator, discriminator) under DDP, or None in one process
+    ddp: tuple | None = None
+
+
+class Remat(torch.nn.Module):
+    """``module``'s forward under non-reentrant ``torch.utils.checkpoint``
+    (``remat_run``). Under DDP this is the module the wrapper holds, so the
+    replay happens inside DDP's forward and backward."""
+
+    def __init__(self, module: torch.nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, *args, **kwargs):
+        return checkpoint(self.module, *args, use_reentrant=False, **kwargs)
 
 
 def create_train_state(
@@ -97,6 +136,21 @@ def create_train_state(
         optim_d=make_optimizer(hps, disc.parameters()),
         schedule=lr_schedule(hps, steps_per_epoch),
     )
+
+
+def replicate_state(state: TrainState, hps) -> TrainState:
+    """Wrap the generator and the discriminator in DDP (each inside ``Remat``
+    under ``remat_run``): rank 0's parameters are broadcast to every rank
+    now. Call it in every process of the group, after a resume's load."""
+    remat = bool(hps.train.get("remat_run", False))
+    state.ddp = tuple(mesh.wrap(Remat(m) if remat else m) for m in (state.model, state.disc))
+    return state
+
+
+def ratio_denominator(local_total: torch.Tensor) -> torch.Tensor:
+    """A ratio loss's denominator under data parallel: the mean over the
+    ranks of their totals (see the module docstring)."""
+    return mesh.all_mean(local_total.float())
 
 
 def update_count(optim: torch.optim.Optimizer) -> int:
@@ -154,7 +208,8 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     [B, T_y, F], ying [B, T_y, M], wav [B, T_y * hop, 1]). Updates ``state``
     in place and returns the metrics as 0-d tensors on the model's device.
     Afterwards every parameter's ``.grad`` holds the gradient its update
-    used."""
+    used. Under DDP (``state.ddp``) ``batch`` is this rank's rows, ``noise``
+    is drawn for the global batch, and the metrics are the global ones."""
     model, disc = state.model, state.disc
     dev = model.device
     b = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS}
@@ -165,29 +220,35 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     remat = bool(hps.train.get("remat_run", False))
     nan_guard = bool(hps.train.get("nan_guard", False))
 
+    ddp = state.ddp is not None
+    world = mesh.process_count() if ddp else 1
+    batch_global = bsz * world
+
     noise = dict(noise or {})
     if any(k not in noise for k in FORWARD_NOISE):
-        noise = {**model.draw_noise(bsz, t_x, b["spec"].shape[1], generator), **noise}
+        noise = {**model.draw_noise(batch_global, t_x, b["spec"].shape[1], generator), **noise}
     for k in ("phi_d", "phi_g"):  # PhaseAug rotates the 2B rows of (real, generated)
         if k not in noise:
-            noise[k] = sample_phi(2 * bsz, generator, dev)
+            noise[k] = sample_phi(2 * batch_global, generator, dev)
+    if ddp:
+        noise = mesh.rank_rows(noise, mesh.process_index(), world, batch_global)
     phi_d, phi_g = (torch.as_tensor(noise[k], device=dev) for k in ("phi_d", "phi_g"))
 
+    if ddp:
+        gen_apply, disc_apply = state.ddp
+        x_total = ratio_denominator(sequence_mask(b["x_lengths"], t_x).sum())
+    else:
+        gen_apply, disc_apply = (Remat(m) if remat else m for m in (model, disc))
+        x_total = None
+    frozen_disc_apply = Remat(disc) if remat else disc
+
     # -- 1. generator forward, its graph kept for the G backward ------------
-    model.train()
-    disc.train()
+    gen_apply.train()
+    disc_apply.train()
     gen_args = (b["x"], b["t"], b["x_lengths"], b["spec"], b["spec_lengths"], b["ying"],
                 b["sid"])
-    if remat:
-        out = checkpoint(model, *gen_args, noise=noise, use_reentrant=False)
-    else:
-        out = model(*gen_args, noise=noise)
+    out = gen_apply(*gen_args, noise=noise, x_mask_total=x_total)
     ids = out["ids_slice"].long()  # [2B], halves identical
-
-    def disc_apply(y, fakes):
-        if remat:
-            return checkpoint(disc, y, fakes, use_reentrant=False)
-        return disc(y, fakes)
 
     # -- 2. the real side ------------------------------------------------------
     mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
@@ -203,7 +264,10 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     loss_disc, r_losses, g_losses = L.discriminator_loss(y_d_r, y_d_g)
     state.optim_d.zero_grad(set_to_none=True)
     loss_disc.backward()
-    grad_norm_d, skipped_d = apply_update(state.optim_d, state.schedule, loss_disc, nan_guard)
+    d_metrics = torch.stack([loss_disc, sum(r_losses), sum(g_losses)]).detach()
+    if ddp:
+        d_metrics = mesh.all_mean(d_metrics)
+    grad_norm_d, skipped_d = apply_update(state.optim_d, state.schedule, d_metrics[0], nan_guard)
 
     # -- 4. generator step against the updated D -------------------------------
     # D stays frozen through the backward: a checkpointed D replays there
@@ -211,7 +275,8 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     c = hps.train
     with frozen(disc):
         aug_y, aug_hat = phaseaug_sync(y_sliced, wav_hier[-1], phi=phi_g)
-        y_d_r, y_d_g, fmap_r, fmap_g = disc_apply(aug_y, [wav_hier[0], wav_hier[1], aug_hat])
+        y_d_r, y_d_g, fmap_r, fmap_g = frozen_disc_apply(
+            aug_y, [wav_hier[0], wav_hier[1], aug_hat])
         y_hat_mel = mel_spectrogram(wav_hier[-1][:bsz, :, 0], d.filter_length, d.n_mel_channels,
                                     d.sampling_rate, hop, d.win_length, d.mel_fmin, d.mel_fmax)
         yin_gt_crop_sliced = slice_segments(
@@ -219,8 +284,9 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
         )
         loss_dur = torch.sum(out["l_length"].float())
         loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * c.c_mel
+        z_total = ratio_denominator(out["z_mask"].sum()) if ddp else None
         loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                            out["z_mask"]) * c.c_kl
+                            out["z_mask"], z_total) * c.c_kl
         loss_yin_dec = (
             torch.mean(torch.abs(out["yin_gt_shifted_crop"] - out["yin_dec_crop"])) * c.c_yin
         )
@@ -236,24 +302,22 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
                       + loss_yin_dec)
         state.optim_g.zero_grad(set_to_none=True)
         loss_total.backward()
-    grad_norm_g, skipped_g = apply_update(state.optim_g, state.schedule, loss_total, nan_guard)
+    g_metrics = torch.stack([loss_gen, loss_fm, loss_mel, loss_dur, loss_kl, loss_yin_dec,
+                             loss_yin_shift, loss_total]).detach()
+    if ddp:
+        g_metrics = mesh.all_mean(g_metrics)
+    grad_norm_g, skipped_g = apply_update(state.optim_g, state.schedule, g_metrics[-1], nan_guard)
     state.step += 1
 
-    metrics = {
-        "loss/g/score": loss_gen,
-        "loss/g/fm": loss_fm,
-        "loss/g/mel": loss_mel,
-        "loss/g/dur": loss_dur,
-        "loss/g/kl": loss_kl,
-        "loss/g/yindec": loss_yin_dec,
-        "loss/g/yinshift": loss_yin_shift,
-        "loss/g/total": loss_total,
-        "loss/d/total": loss_disc,
-        "loss/d/real": sum(r_losses),
-        "loss/d/gen": sum(g_losses),
+    names = ("score", "fm", "mel", "dur", "kl", "yindec", "yinshift", "total")
+    metrics = {f"loss/g/{k}": v for k, v in zip(names, g_metrics)}
+    metrics.update({
+        "loss/d/total": d_metrics[0],
+        "loss/d/real": d_metrics[1],
+        "loss/d/gen": d_metrics[2],
         "grad_norm/g": grad_norm_g,
         "grad_norm/d": grad_norm_d,
-    }
+    })
     if nan_guard:
         metrics["nan_skipped/g"] = skipped_g
         metrics["nan_skipped/d"] = skipped_d

@@ -1,5 +1,8 @@
-"""Training entry point: ``python -m vits_torch.training.train -c <yaml> -m <dir>``
-(port of ``vits_tpu/training/train.py`` for one process on one card).
+"""Training entry point (port of ``vits_tpu/training/train.py``):
+
+    python -m vits_torch.training.train -c <yaml> -m <dir>            # one card
+    torchrun --nproc_per_node N -m vits_torch.training.train \
+        -c <yaml> -m <dir> --distributed                               # N cards
 
 Behavioral reference: reference train.py + train_and_evaluate.py, through
 the JAX package's loop: filelists -> cached features -> bucketed static
@@ -18,8 +21,20 @@ Differences of form, none of function:
     ``(train.seed, s)`` and PyTorch's default generator (dropout) is seeded
     from the same pair, so a resumed run draws what an unbroken run draws;
     the models' initial weights come from ``torch.manual_seed(train.seed)``;
-  * one process on one device: ``--distributed`` (multi-GPU DDP) is not
-    ported yet and raises.
+  * ``--distributed``: one process a card under ``torchrun`` and DDP over
+    NCCL (``vits_torch/parallel/mesh.py``), where the JAX package runs one
+    process a host over a device mesh. ``train.batch_size`` is the global
+    batch, as there: each rank's sampler takes ``batch_size / world`` rows
+    (``num_replicas=world, rank=rank``), and the step computes the global
+    batch's losses and gradient (``training/step.py``). Every rank draws the
+    global batch's noise from the same seed and keeps its rows. Dropout:
+    rank 0 seeds it as one process does and a rank r > 0 from
+    ``(train.seed, s, r)``, so each rank draws its own masks and a run of
+    one rank draws what the single-process run draws; JAX draws one mask a
+    global row from one key, which no split of the batch over ranks can
+    reproduce. Every rank loads the newest checkpoint; rank 0 alone
+    evaluates, saves, writes summaries and ``train.log``, and logs the
+    global metrics.
 
 Reproduced on purpose: a checkpoint records the epoch it was saved in, not
 the next one, so a resumed run starts that epoch again from its first batch
@@ -30,12 +45,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from vits_torch.config import get_hparams
+from vits_torch.config import get_hparams, load_hparams
 from vits_torch.data.dataset import (
     DatasetConfig,
     DistributedBucketSampler,
@@ -44,14 +61,22 @@ from vits_torch.data.dataset import (
 )
 from vits_torch.models.avocodo import AvocodoDiscriminator, probe_discriminator
 from vits_torch.models.synthesizer import build_synthesizer, resolve_device
+from vits_torch.ops import mas_cuda
+from vits_torch.parallel import mesh
 from vits_torch.training.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
     save_checkpoint,
 )
 from vits_torch.training.evaluate import evaluate
-from vits_torch.training.step import TrainState, create_train_state, train_step
+from vits_torch.training.step import (
+    TrainState,
+    create_train_state,
+    replicate_state,
+    train_step,
+)
 from vits_torch.utils.logging_utils import (
+    NullWriter,
     check_git_hash,
     get_logger,
     have_matplotlib,
@@ -98,9 +123,13 @@ def build_discriminator(hps, bf16: bool, device) -> AvocodoDiscriminator:
     return make(bf16=bf16, segment_size=hps.train.segment_size, device=device)
 
 
-def step_seeds(seed: int, step: int) -> tuple[int, int]:
-    """(noise seed, dropout seed) of the step that starts at ``step``."""
+def step_seeds(seed: int, step: int, rank: int = 0) -> tuple[int, int]:
+    """(noise seed, dropout seed) of the step that starts at ``step`` on
+    ``rank``: the noise seed is the same on every rank, the dropout seed of
+    a rank > 0 is its own."""
     noise, dropout = np.random.SeedSequence([seed, step]).generate_state(2, np.uint64)
+    if rank:
+        dropout = np.random.SeedSequence([seed, step, rank]).generate_state(1, np.uint64)[0]
     return int(noise), int(dropout)
 
 
@@ -154,20 +183,28 @@ class RunReport:
 
 
 def run(hps, initial_run: bool = False, device=None) -> RunReport:
-    """Train on ``device`` (``cuda`` unless it names another)."""
+    """Train on ``device`` (``cuda`` unless it names another); inside a
+    process group (``parallel.mesh.init_distributed``), as one of its ranks."""
     device = resolve_device(device)
-    logger = get_logger(hps.model_dir)
-    check_git_hash(hps.model_dir, logger)
-    writer = make_writer(hps.model_dir, logger)
-    if not have_matplotlib():
-        logger.warning("no spectrogram images are summarized: matplotlib does not import")
+    rank, world = mesh.process_index(), mesh.process_count()
+    lead = rank == 0
+    if lead:
+        logger = get_logger(hps.model_dir)
+        check_git_hash(hps.model_dir, logger)
+        writer = make_writer(hps.model_dir, logger)
+        if not have_matplotlib():
+            logger.warning("no spectrogram images are summarized: matplotlib does not import")
+    else:  # no train.log, no summaries: warnings reach stderr
+        logger = logging.getLogger(f"vits_torch.train.rank{rank}")
+        writer = NullWriter()
 
     train_ds = build_dataset(hps, "train", pt_run=initial_run)
     val_ds = build_dataset(hps, "val")
     boundaries = list(hps.data.get("bucket_boundaries", DEFAULT_BOUNDARIES))
-    batch_size = hps.train.batch_size
+    # train.batch_size is the global batch; each rank feeds its share
+    batch_size = mesh.local_batch_rows(hps.train.batch_size)
     sampler = DistributedBucketSampler(
-        train_ds.lengths, batch_size, boundaries, num_replicas=1, rank=0, shuffle=True,
+        train_ds.lengths, batch_size, boundaries, num_replicas=world, rank=rank, shuffle=True,
     )
     text_bound = 2 * hps.data.get("max_text_len", 190) + 4
     pin = device.type == "cuda"
@@ -176,7 +213,7 @@ def run(hps, initial_run: bool = False, device=None) -> RunReport:
         val_ds.lengths, min(batch_size, max(len(val_ds), 1)), boundaries,
         num_replicas=1, rank=0, shuffle=False,
     )
-    val_loader = make_loader(val_ds, val_sampler, text_bound, pin_memory=pin)
+    val_loader = make_loader(val_ds, val_sampler, text_bound, pin_memory=pin) if lead else None
 
     bf16 = bool(hps.train.get("bf16_run", False))
     torch.manual_seed(hps.train.seed)
@@ -190,6 +227,10 @@ def run(hps, initial_run: bool = False, device=None) -> RunReport:
     if ckpt is not None:
         state, epoch_start = load_checkpoint(ckpt, state)
         logger.info("resumed from %s (epoch %d)", ckpt, epoch_start)
+    if mesh.is_distributed():
+        replicate_state(state, hps)
+        logger.info("data parallel over %d process(es) (%s), global batch %d (%d a rank)",
+                    world, device, hps.train.batch_size, batch_size)
 
     global_step = state.step
     report = RunReport(state, global_step, epoch_start, [], [], {}, {}, [], [])
@@ -206,7 +247,7 @@ def run(hps, initial_run: bool = False, device=None) -> RunReport:
             sampler.set_epoch(epoch)
             t_epoch = time.time()
             for batch in _device_batches(train_loader, device, report.data_wait_s):
-                noise_seed, dropout_seed = step_seeds(hps.train.seed, state.step)
+                noise_seed, dropout_seed = step_seeds(hps.train.seed, state.step, rank)
                 gen.manual_seed(noise_seed)
                 torch.manual_seed(dropout_seed)
                 if profile_at and global_step == profile_at:
@@ -232,14 +273,14 @@ def run(hps, initial_run: bool = False, device=None) -> RunReport:
                         scalars["loss/g/total"],
                         scalars["loss/d/total"],
                     )
-                if global_step % eval_interval == 0:
+                if global_step % eval_interval == 0 and lead:
                     _sync(device)
                     t0 = time.perf_counter()
                     scalars = evaluate(model, val_loader, writer, global_step, hps)
                     report.evals.append({"step": global_step, "s": time.perf_counter() - t0,
                                          "scalars": scalars})
                     timer.restart()
-                if global_step % save_interval == 0:
+                if global_step % save_interval == 0 and lead:
                     _sync(device)
                     t0 = time.perf_counter()
                     sizes = save_checkpoint(
@@ -254,18 +295,28 @@ def run(hps, initial_run: bool = False, device=None) -> RunReport:
                 "epoch %d done in %.1fs (%d steps)",
                 epoch, time.time() - t_epoch, len(sampler),
             )
+        if mesh.is_distributed():
+            dist.barrier()  # the ranks leave together, rank 0's files written
     finally:
         _close_loader(train_loader)
-        _close_loader(val_loader)
+        if val_loader is not None:
+            _close_loader(val_loader)
         writer.close()
     if metrics is not None:
         report.last_metrics = {k: float(v) for k, v in metrics.items()}
     report.step_s = list(timer.times)
+    logger.info(
+        "run done at step %d; step intervals %s ms; kernel launches in this process %s%s",
+        state.step, ", ".join(f"{t * 1e3:.2f}" for t in report.step_s), dict(mas_cuda.launches),
+        f"; peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+        if device.type == "cuda" else "",
+    )
     return report
 
 
 def main(argv=None) -> RunReport:
-    parser = argparse.ArgumentParser(description="train vits_torch on one card")
+    parser = argparse.ArgumentParser(description="train vits_torch on one card or, under "
+                                     "torchrun with --distributed, on several")
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("-m", "--model", required=True, help="model dir name")
     parser.add_argument(
@@ -274,17 +325,25 @@ def main(argv=None) -> RunReport:
     )
     parser.add_argument(
         "--distributed", action="store_true",
-        help="multi-GPU data parallel: not ported yet (raises)",
+        help="data parallel, one process a card under torchrun: DDP over NCCL "
+        "(gloo with --device cpu)",
     )
-    parser.add_argument("--device", default=None, help="default: cuda")
+    parser.add_argument("--device", default=None,
+                        help="default: cuda (cuda:LOCAL_RANK with --distributed)")
     args = parser.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-GPU training (DDP over NCCL) is not ported yet; "
-            "vits_torch trains in one process on one card"
-        )
-    hps = get_hparams(args.config, args.model)
-    return run(hps, initial_run=args.initial_run, device=args.device)
+    if not args.distributed:
+        return run(get_hparams(args.config, args.model), initial_run=args.initial_run,
+                   device=args.device)
+    device = mesh.init_distributed(args.device)
+    try:
+        if mesh.process_index() == 0:
+            hps = get_hparams(args.config, args.model)  # snapshots the config
+        else:
+            hps = load_hparams(args.config)
+            hps.model_dir = args.model
+        return run(hps, initial_run=args.initial_run, device=device)
+    finally:
+        mesh.destroy()
 
 
 if __name__ == "__main__":
