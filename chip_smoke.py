@@ -77,6 +77,23 @@ to the CPU):
                graft_entry.dryrun_multichip(2) on the card, and the host
                MAS (ops/mas_native.py) against maximum_path_torch at phase
                2's main-path shape, exactly
+ 10. tp        graft_entry.dryrun_multichip_2d(4) on the card; then four
+               gloo ranks on cuda:0 as a 2 x 2 (data, model) mesh at full
+               CJE width (flagship D, segment 8192, f32, TF32 off,
+               deterministic kernels, 2 rows a data rank), the HiFi-GAN
+               decoder split on output channels over the model ranks
+               (parallel/mesh.py::tp_shard_generator): one train_step a rank
+               against one process on the global batch of 4 with the same
+               draws (metrics rtol 1e-4; the gathered parameters and
+               gradients held as in 9 (b)); model peers' replicated
+               parameters bit for bit equal; mas_fused once a rank; step
+               wall and peak memory a rank
+ 11. study     tools/convergence_torch.py at the study's configuration (B=16,
+               upsample_initial_channel 256, 4 text-encoder layers, bf16):
+               gen (280 voices), 2 epochs of train with an evaluation and a
+               checkpoint every 16 steps, analyze and synth; finite curves,
+               8 held-out texts, mas_fused once a train step and once a
+               validation batch
 Then no process the phases started (loader workers, nvcc, torchrun, ranks)
 may be left running: any still alive after 10 s is killed and the script
 fails.
@@ -1339,6 +1356,50 @@ def state_arrays(state) -> dict:
             for side in ("model", "disc")}
 
 
+def hold_step(metrics, state, m_one, s_one, initial, lr):
+    """One step's metrics and its {side: {name: (param, grad)}} against one
+    process's on the same global batch: metrics rtol 1e-4; gradients within
+    1e-3 (decoder 1e-2) of the tensor's norm + 1e-6 of the global norm;
+    updated parameters within 1e-3 of the update's norm where the gradient's
+    sign is settled, 2.01 x lr elsewhere. Returns (failures, worst errors,
+    settled elements, elements)."""
+    bad = [k for k in m_one if abs(metrics[k] - m_one[k]) > 1e-4 * abs(m_one[k])]
+    worst = {"grad": 0.0, "settled": 0.0, "rest": 0.0}
+    n_settled = n_all = 0
+    for side in ("model", "disc"):
+        total = m_one[f"grad_norm/{'g' if side == 'model' else 'd'}"]
+        start = initial["g" if side == "model" else "d"]
+        for k, (p_ref, g_ref) in s_one[side].items():
+            p, g = state[side][k]
+            g_err = float(np.linalg.norm(g - g_ref))
+            rel = 1e-2 if k.startswith("waveform_decoder.") else 1e-3
+            g_tol = rel * float(np.linalg.norm(g_ref)) + 1e-6 * total
+            if g_err > 1e-6 * total:
+                worst["grad"] = max(worst["grad"], g_err / float(np.linalg.norm(g_ref)))
+            if g_err > g_tol:
+                bad.append(f"grad {side}.{k}")
+            # Adam's first step moves an element by lr * g / (|g| + eps): +-lr
+            # where the gradient's sign is settled (|g_ref| above the tensor's
+            # gradient tolerance, which no passing gradient can cross), any
+            # value in [-lr, lr] where it is ~0. Settled elements must take the
+            # reference's update within 1e-3 of its norm; the rest 2.01 x lr.
+            settled = np.abs(g_ref) > g_tol
+            n_settled, n_all = n_settled + int(settled.sum()), n_all + settled.size
+            if settled.any():
+                p0 = start[k].numpy()
+                err = float(np.linalg.norm((p - p_ref)[settled])
+                            / np.linalg.norm((p_ref - p0)[settled]))
+                worst["settled"] = max(worst["settled"], err)
+                if err > 1e-3:
+                    bad.append(f"param {side}.{k} (settled)")
+            if not settled.all():
+                err = float(np.abs(p - p_ref)[~settled].max())
+                worst["rest"] = max(worst["rest"], err)
+                if err > 2.01 * lr:
+                    bad.append(f"param {side}.{k}")
+    return bad, worst, n_settled, n_all
+
+
 def ddp_rank_step(payload: str) -> dict:
     """Phase 9 (b), one rank (a spawned process): its rows of the global
     batch, one DDP train_step on the card; metrics, parameters, gradients and
@@ -1378,45 +1439,15 @@ def check_ddp_two_ranks(card, root: Path, seed):
                                                 noise=data["noise"]).items()}
     s_one = state_arrays(one)
     got = ranks[0]
-    bad = [k for k in m_one if abs(got["metrics"][k] - m_one[k]) > 1e-4 * abs(m_one[k])]
+    bad, worst, n_settled, n_all = hold_step(got["metrics"], got["state"], m_one, s_one,
+                                             data, hps.train.learning_rate)
     if ranks[1]["metrics"] != got["metrics"]:
         bad.append("the ranks' metrics differ")
-    lr = hps.train.learning_rate
-    worst = {"grad": 0.0, "settled": 0.0, "rest": 0.0}
-    n_settled = n_all = 0
     for side in ("model", "disc"):
-        total = m_one[f"grad_norm/{'g' if side == 'model' else 'd'}"]
-        initial = data["g" if side == "model" else "d"]
-        for k, (p_ref, g_ref) in s_one[side].items():
-            p, g = got["state"][side][k]
+        for k, (p, _) in got["state"][side].items():
             if not (np.array_equal(p, ranks[1]["state"][side][k][0])):
                 bad.append(f"rank 1 {side}.{k} differs from rank 0")
-            g_err = float(np.linalg.norm(g - g_ref))
-            rel = 1e-2 if k.startswith("waveform_decoder.") else 1e-3
-            g_tol = rel * float(np.linalg.norm(g_ref)) + 1e-6 * total
-            if g_err > 1e-6 * total:
-                worst["grad"] = max(worst["grad"], g_err / float(np.linalg.norm(g_ref)))
-            if g_err > g_tol:
-                bad.append(f"grad {side}.{k}")
-            # Adam's first step moves an element by lr * g / (|g| + eps): +-lr
-            # where the gradient's sign is settled (|g_ref| above the tensor's
-            # gradient tolerance, which no passing gradient can cross), any
-            # value in [-lr, lr] where it is ~0. Settled elements must take the
-            # reference's update within 1e-3 of its norm; the rest 2.01 x lr.
-            settled = np.abs(g_ref) > g_tol
-            n_settled, n_all = n_settled + int(settled.sum()), n_all + settled.size
-            if settled.any():
-                p0 = initial[k].numpy()
-                err = float(np.linalg.norm((p - p_ref)[settled])
-                            / np.linalg.norm((p_ref - p0)[settled]))
-                worst["settled"] = max(worst["settled"], err)
-                if err > 1e-3:
-                    bad.append(f"param {side}.{k} (settled)")
-            if not settled.all():
-                err = float(np.abs(p - p_ref)[~settled].max())
-                worst["rest"] = max(worst["rest"], err)
-                if err > 2.01 * lr:
-                    bad.append(f"param {side}.{k}")
+    lr = hps.train.learning_rate
     launches = [r["launches"] for r in ranks]
     print(f"{card} | ddp two ranks on the card over gloo (spawned, joined in {wall:.2f} s), tiny "
           f"config + probe D, global batch 4 (x_lengths {DDP_X_LENGTHS}, spec_lengths "
@@ -1476,6 +1507,254 @@ def check_entry_and_host_mas(card, main_lengths):
     return dict(entry_ms=ms, host_mas_ms=ms_native)
 
 
+TP_MESH, TP_ROWS = (2, 2), 2  # phase 10: a 2 x 2 (data, model) mesh, 2 rows a data rank
+
+
+def tp_setup(hps, batch, seed, payload: Path) -> dict:
+    """Phase 10's inputs, written to ``payload`` for the ranks: the CJE
+    generator and the flagship discriminator from the seed, the first
+    2 x TP_ROWS rows of phase 3's batch, and the global batch's draws."""
+    from vits_torch.models.avocodo import AvocodoDiscriminator
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops.phaseaug import sample_phi
+
+    rows = TP_MESH[0] * TP_ROWS
+    torch.manual_seed(seed + 10)
+    model = build_synthesizer(hps, device="cpu")
+    disc = AvocodoDiscriminator(segment_size=hps.train.segment_size, device="cpu")
+    b = {k: v[:rows].cpu() for k, v in batch.items()}
+    tb = dict(x=b["x"], t=b["t"], x_lengths=b["x_lengths"], spec=b["y"],
+              spec_lengths=b["y_lengths"], ying=b["ying"], wav=b["wav"], sid=b["sid"])
+    gen = torch.Generator().manual_seed(seed + 10)
+    noise = model.draw_noise(rows, tb["x"].shape[1], tb["spec"].shape[1], gen)
+    noise.update(phi_d=sample_phi(2 * rows, gen), phi_g=sample_phi(2 * rows, gen))
+    data = {"g": model.state_dict(), "d": disc.state_dict(), "batch": tb, "noise": noise}
+    torch.save(data, payload)
+    return data
+
+
+def tp_card_state(data, hps, mesh_2d=None):
+    """Phase 10's models on this process's card from ``data``'s weights, f32,
+    dropout off, TF32 off, deterministic kernels (model peers compute their
+    replicas independently, and must get the same bits); the decoder split
+    over ``mesh_2d``'s model group when one is given."""
+    from vits_torch.models.avocodo import AvocodoDiscriminator
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.parallel import mesh
+    from vits_torch.training.step import create_train_state, replicate_state
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model = build_synthesizer(hps)  # on the process's current card
+    model.load_state_dict(data["g"])
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    disc = AvocodoDiscriminator(segment_size=hps.train.segment_size)
+    disc.load_state_dict(data["d"])
+    if mesh_2d is not None:
+        mesh.tp_shard_generator(model, mesh_2d)
+    state = create_train_state(model, disc, hps, steps_per_epoch=100)
+    return replicate_state(state, hps) if mesh_2d is not None else state
+
+
+def tp_rank_step(payload: str, out: str, config_path: str) -> dict:
+    """Phase 10, one rank (a spawned process): the 2 x 2 mesh, its data
+    row's rows, one train_step with the decoder split; its wall, peak
+    memory, MAS launches and a digest of every replicated parameter. Rank 0
+    also saves the gathered parameters and gradients to ``out``."""
+    import hashlib
+
+    from vits_torch.config import load_hparams
+    from vits_torch.ops import mas_cuda
+    from vits_torch.parallel import mesh
+    from vits_torch.training.step import train_step
+
+    hps = load_hparams(config_path)
+    m = mesh.make_mesh_2d(*TP_MESH)
+    data = torch.load(payload, weights_only=False)
+    state = tp_card_state(data, hps, m)
+    rows = mesh.rank_rows(data["batch"], m.data_index, m.n_data, m.n_data * TP_ROWS)
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = train_step(state, rows, hps, noise=data["noise"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mas_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    gathered = {}
+    for side, module in (("model", state.model), ("disc", state.disc)):
+        params = mesh.gather_state_dict(module, m) if side == "model" else module.state_dict()
+        gathered[side] = {}
+        for k, p in module.named_parameters():
+            dim = getattr(p, "tp_dim", None)
+            g = p.grad if dim is None else mesh._all_gather_cat(p.grad, dim, m.model_group,
+                                                                 m.n_model)
+            gathered[side][k] = (params[k].cpu().numpy(), g.cpu().numpy())
+    digests = {k: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+               for module in (state.model, state.disc) for k, p in module.named_parameters()
+               if getattr(p, "tp_dim", None) is None}
+    if mesh.process_index() == 0:
+        torch.save(gathered, out)
+    split = sorted(k for k, p in state.model.named_parameters()
+                   if getattr(p, "tp_dim", None) is not None)
+    return {"metrics": {k: v.item() for k, v in metrics.items()}, "wall_s": wall,
+            "peak_bytes": peak, "launches": launches, "digests": digests, "split": split,
+            "place": (m.data_index, m.model_index)}
+
+
+def check_tp(card, config_path, batch, root: Path, seed):
+    """Phase 10: dryrun_multichip_2d(4) on the card, then one 2-D step at
+    full width over four gloo ranks on cuda:0 against one process on the
+    global batch with the same draws."""
+    from vits_torch import graft_entry
+    from vits_torch.config import load_hparams
+    from vits_torch.parallel import mesh
+    from vits_torch.training.step import train_step
+
+    hps = load_hparams(config_path)
+
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip_2d(4)  # its default device: the card
+    dry_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in dry.values()):
+        raise AssertionError(f"graft_entry.dryrun_multichip_2d(4): {dry}")
+    print(f"{card} | graft_entry.dryrun_multichip_2d(4): four gloo ranks on cuda:0 (2 x 2 "
+          f"mesh), one step of the tiny model, {dry_s:.2f} s of wall")
+
+    payload, out = root / "tp_full.pt", root / "tp_rank0.pt"
+    data = tp_setup(hps, batch, seed, payload)
+    world = TP_MESH[0] * TP_MESH[1]
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(tp_rank_step, world, str(payload), str(out), config_path,
+                       device="cuda:0", backend="gloo", timeout=900)
+    wall = time.perf_counter() - t0
+    one = tp_card_state(data, hps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    m_one = {k: v.item() for k, v in train_step(one, data["batch"], hps,
+                                                noise=data["noise"]).items()}
+    torch.cuda.synchronize()
+    one_s, one_peak = time.perf_counter() - t1, torch.cuda.max_memory_allocated()
+    s_one = state_arrays(one)
+    del one
+    torch.cuda.empty_cache()
+    got = torch.load(out, weights_only=False)
+    bad, worst, n_settled, n_all = hold_step(ranks[0]["metrics"], got, m_one, s_one, data,
+                                             hps.train.learning_rate)
+    if [r["place"] for r in ranks] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        bad.append(f"mesh places {[r['place'] for r in ranks]}")
+    if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+        bad.append("the ranks' metrics differ")
+    peers = [k for d in range(TP_MESH[0]) for k, h in ranks[2 * d]["digests"].items()
+             if ranks[2 * d + 1]["digests"][k] != h]
+    if peers:
+        bad.append(f"model peers' replicas differ: {peers[:5]} ({len(peers)} tensors)")
+    launches = [r["launches"] for r in ranks]
+    rel = max(abs(ranks[0]["metrics"][k] - m_one[k]) / abs(m_one[k]) for k in m_one)
+    print(f"{card} | tp 2 x 2 mesh (data, model), four gloo ranks on cuda:0 (spawned, joined "
+          f"in {wall:.2f} s), CJE generator at full width + flagship Avocodo D, f32, TF32 off, "
+          f"deterministic kernels, {TP_ROWS} rows a data rank (global batch "
+          f"{TP_MESH[0] * TP_ROWS}, T_y {data['batch']['spec'].shape[1]}, T_x "
+          f"{data['batch']['x'].shape[1]}), segment {hps.train.segment_size}: "
+          f"{len(ranks[0]['split'])} decoder tensors split on output channels; against one "
+          f"process on the global batch: max relative metric error {rel:.3e} (rtol 1e-4); "
+          f"gradients, worst relative error above 1e-6 of the global norm {worst['grad']:.3e} "
+          f"(1e-3, decoder 1e-2, of the tensor's norm); updated parameters on the {n_settled} "
+          f"of {n_all} elements whose gradient sign is settled, worst ||err|| "
+          f"{worst['settled']:.3e} of the update's norm per tensor (1e-3), elsewhere max|err| "
+          f"{worst['rest']:.3e} (2.01 x lr); model peers' replicated parameters "
+          f"{'equal bit for bit' if not peers else 'DIFFER'}; MAS launches per rank {launches}")
+    print(f"{card} | tp step wall per rank "
+          + ", ".join(f"{r['wall_s'] * 1e3:.2f} ms" for r in ranks)
+          + "; peak memory per rank "
+          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f} GiB" for r in ranks)
+          + f"; one process on the global batch {one_s * 1e3:.2f} ms, "
+          f"{one_peak / 2**30:.2f} GiB (host clock, synchronized; first step of each process)")
+    if bad:
+        raise AssertionError(f"tp: {bad[:10]}")
+    if any(ln != {"mas_fused": 1, "mas_forward": 0, "mas_backtrack": 0} for ln in launches):
+        raise AssertionError(f"tp: MAS launches {launches}, want mas_fused 1 a rank")
+    return dict(launches=launches, worst=worst, wall_s=[r["wall_s"] for r in ranks],
+                peak_bytes=[r["peak_bytes"] for r in ranks], dryrun_s=dry_s)
+
+
+CONV_EPOCHS, CONV_INTERVAL = 2, 16  # phase 11: 2 epochs of the study, a checkpoint every 16 steps
+
+
+def check_convergence_tool(card, root: Path, model=None):
+    """Phase 11: tools/convergence_torch.py's gen, train, analyze and synth
+    on the card at the study's configuration, for 2 epochs with evaluations
+    and checkpoints every 16 steps. It shows the tool runs on the card, not
+    that the model converges. ``model`` overrides the study's model
+    entries (a rehearsal's tiny widths)."""
+    from vits_torch.config import load_hparams
+    from vits_torch.data.dataset import DistributedBucketSampler
+    from vits_torch.ops import mas_cuda
+    from vits_torch.training.train import build_dataset
+
+    spec = importlib.util.spec_from_file_location("convergence_torch",
+                                                  ROOT / "tools" / "convergence_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    work = str(root / "conv")
+    t0 = time.perf_counter()
+    tool.gen(work)
+    gen_s = time.perf_counter() - t0
+    cfg = tool.make_config(work, CONV_EPOCHS, model=model, train={
+        "eval_interval": CONV_INTERVAL, "save_interval": CONV_INTERVAL})
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = tool.train(work, CONV_EPOCHS, config=cfg)
+    train_s = time.perf_counter() - t0
+    launches = dict(mas_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    rows = tool.analyze(work)
+    summary = tool.synth(work)
+    rest_s = time.perf_counter() - t0
+    steps = report.state.step
+    ms = [t * 1e3 for t in report.step_s]
+    print(f"{card} | convergence tool: gen {gen_s:.2f} s (280 voices); train {steps} steps at "
+          f"the study's config (B=16, upsample_initial_channel 256, n_layers 4, bf16) in "
+          f"{train_s:.2f} s: StepTimer intervals median {np.median(ms):.2f} ms (min "
+          f"{min(ms):.2f}, max {max(ms):.2f}, n={len(ms)}), loader waits "
+          f"{sum(report.data_wait_s):.2f} s over {len(report.data_wait_s)} batches, peak "
+          f"{peak / 2**30:.2f} GiB; loss/g/total {report.first_metrics['loss/g/total']:.4f} -> "
+          f"{report.last_metrics['loss/g/total']:.4f}; MAS launches {launches}; analyze + "
+          f"synth {rest_s:.2f} s")
+    for r in rows:
+        print(f"{card} | convergence tool analyze: " + json.dumps(r))
+    print(f"{card} | convergence tool synth: " + json.dumps(summary))
+    evals = len(report.evals)
+    hps = load_hparams(cfg)
+    val_ds = build_dataset(hps, "val")
+    val_batches = evals * len(DistributedBucketSampler(
+        val_ds.lengths, min(hps.train.batch_size, len(val_ds)), hps.data.bucket_boundaries,
+        num_replicas=1, rank=0, shuffle=False))
+    if steps != len(report.data_wait_s) or not all(
+            np.isfinite(list(report.last_metrics.values()))):
+        raise AssertionError(f"convergence tool: {steps} steps, {report.last_metrics}")
+    if [r["step"] for r in rows] != [CONV_INTERVAL * (i + 1) for i in range(evals)] or not all(
+            np.isfinite(r[k]) for r in rows for k in ("dur_loss", "mas_boundary_mae")):
+        raise AssertionError(f"convergence tool: analyze {rows}")
+    if summary["n"] != 8 or not np.isfinite(summary["mean_sim"]):
+        raise AssertionError(f"convergence tool: synth {summary}")
+    if launches != {"mas_fused": steps + val_batches, "mas_forward": 0, "mas_backtrack": 0}:
+        raise AssertionError(f"convergence tool: MAS launches {launches}, want one a train "
+                             f"step and one a validation batch ({steps} + {val_batches})")
+    return dict(launches=launches, step_ms=ms, steps=steps)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1525,6 +1804,10 @@ def main() -> int:
         ddp = {"cli": check_ddp_cli(card, Path(tmp), run),
                "two_ranks": check_ddp_two_ranks(card, Path(tmp), args.seed)}
     check_entry_and_host_mas(card, lengths)
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = check_tp(card, str(ROOT / "configs" / "config_cje.yaml"), batch, Path(tmp),
+                      args.seed)
+        conv = check_convergence_tool(card, Path(tmp))
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")
@@ -1557,6 +1840,10 @@ def main() -> int:
                 "cli_world_1": ddp["cli"]["launches"][name],
                 "two_ranks": [r[name] for r in ddp["two_ranks"]["launches"]],
             },
+            # phase 10: each of four ranks' one step on the 2 x 2 (data, model) mesh
+            "launches_in_tp": [r[name] for r in tp["launches"]],
+            # phase 11: the convergence tool's train (one a step, one a validation batch)
+            "launches_in_convergence": conv["launches"][name],
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))

@@ -68,24 +68,65 @@ def test_mel_filterbank_matches_jax(fmax):
     np.testing.assert_array_equal(t_stft.mel_filterbank(22050, 1024, 80, 0.0, fmax), ref)
 
 
+def _mel_oracle(y, n_fft=1024, hop=256):
+    """The log-mel of ``mel_spectrogram(y, n_fft, 80, 22050, hop, n_fft, 0,
+    None)`` in float64 numpy from the definitions (periodic Hann window,
+    reflect pad, real DFT, Slaney filterbank)."""
+    y = y.astype(np.float64)
+    p = (n_fft - hop) // 2
+    y = np.pad(y, ((0, 0), (p, p)), mode="reflect")
+    idx = np.arange(1 + (y.shape[1] - n_fft) // hop)[:, None] * hop + np.arange(n_fft)
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+    spec = np.abs(np.fft.rfft(y[:, idx] * window, axis=-1))
+    mag = np.sqrt(spec ** 2 + 1e-6)
+    mel = mag @ j_stft.mel_filterbank(22050, n_fft, 80, 0.0, None).astype(np.float64).T
+    return np.log(np.clip(mel, 1e-5, None))
+
+
 def test_mel_spectrogram_and_spec_to_mel_match_jax():
     rng = np.random.default_rng(30)
     y = (rng.standard_normal((2, 4096)) * 0.3).astype(np.float32)
     args = (1024, 80, 22050, 256, 1024, 0.0, None)
-    ref = np.asarray(j_stft.mel_spectrogram(y, *args))
+    # the JAX einsums pass no precision: pin the reference to full f32
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(j_stft.mel_spectrogram(y, *args))
     out = t_stft.mel_spectrogram(_t(y), *args).numpy()
     assert out.shape == ref.shape == (2, 16, 80) and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, **MEL)
     spec = np.abs(rng.standard_normal((2, 7, 513))).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(j_stft.spec_to_mel(spec, 1024, 80, 22050, 0.0, None))
     np.testing.assert_allclose(
-        t_stft.spec_to_mel(_t(spec), 1024, 80, 22050, 0.0, None).numpy(),
-        np.asarray(j_stft.spec_to_mel(spec, 1024, 80, 22050, 0.0, None)), **MEL,
-    )
+        t_stft.spec_to_mel(_t(spec), 1024, 80, 22050, 0.0, None).numpy(), ref, **MEL)
     x = rng.uniform(0, 2, (3, 5)).astype(np.float32)
     np.testing.assert_allclose(t_stft.spectral_normalize(_t(x)).numpy(),
                                np.asarray(j_stft.spectral_normalize(x)), **F32)
     np.testing.assert_allclose(t_stft.spectral_de_normalize(_t(x)).numpy(),
                                np.asarray(j_stft.spectral_de_normalize(x)), **F32)
+
+
+@pytest.mark.parametrize("torch_precision", ["highest", "medium"])
+def test_mel_spectrogram_matches_the_float64_oracle(torch_precision):
+    """Each side's log-mel lies within 1e-5 of the float64 oracle, the
+    port's whatever f32 matmul precision is set globally ("medium" lets a
+    CPU with bf16 matrix units round an f32 matmul's operands to bf16, which
+    moved the port's log-mel by 9.1e-3 before its matmuls summed in f64).
+    Bins of small magnitude set the error: a quiet DFT bin's relative error
+    is the log-mel's."""
+    rng = np.random.default_rng(30)
+    y = (rng.standard_normal((2, 4096)) * 0.3).astype(np.float32)
+    args = (1024, 80, 22050, 256, 1024, 0.0, None)
+    oracle = _mel_oracle(y)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(torch_precision)
+    try:
+        out = t_stft.mel_spectrogram(_t(y), *args).numpy()
+    finally:
+        torch.set_float32_matmul_precision(before)
+    np.testing.assert_allclose(out, oracle, rtol=0, atol=1e-5)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(j_stft.mel_spectrogram(y, *args))
+    np.testing.assert_allclose(ref, oracle, rtol=0, atol=1e-5)
 
 
 # -- PQMF -------------------------------------------------------------------------------

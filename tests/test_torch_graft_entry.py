@@ -40,8 +40,8 @@ def _torchrun(cfg, model_dir, nproc=2):
            "--local-addr", "127.0.0.1", f"--nproc_per_node={nproc}", "-m",
            "vits_torch.training.train", "-c", cfg, "-m", model_dir, "--distributed",
            "--device", "cpu"]
-    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=180,
-                          env={**os.environ, "OMP_NUM_THREADS": "2", "GLOO_SOCKET_IFNAME": "lo"})
+    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo"})
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ def _port_sources():
         ROOT / "tools" / "probe_mas_fused.py",
         ROOT / "tools" / "probe_step_grads.py",
         ROOT / "tools" / "probe_serve_threads.py",
+        ROOT / "tools" / "convergence_torch.py",
         ROOT / "examples" / "quickstart_synthetic_torch.py",
         ROOT / "examples" / "serve_batched_torch.py",
     ]

@@ -22,6 +22,8 @@ Tolerances, by reason:
 Integer and index outputs (masks, paths, slices, crops) must match exactly.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,22 @@ STFT = dict(rtol=1e-5, atol=1e-4)
 SPLINE = dict(rtol=1e-4, atol=1e-4)
 YIN_F32 = dict(rtol=1e-3, atol=1e-3)
 YIN_F64 = dict(rtol=2e-2, atol=2e-3)
+
+
+def share_the_cores() -> None:
+    """Under pytest-xdist, cap PyTorch's intra-op threads at this worker's
+    share of the cores. By default every worker runs as many OpenMP threads
+    as the host has cores; with 6 workers on 8 cores their parallel regions
+    wait on threads the other workers hold, and two tiny train steps took
+    107 s against 7.7 s with one thread a worker (an 8-core host under the
+    same load). Every xdist worker collects every test module, so the cap
+    holds in all of them; a run without xdist keeps PyTorch's default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * workers)))
+
+
+share_the_cores()
 
 
 # -- helpers shared with test_torch_synthesizer -------------------------------

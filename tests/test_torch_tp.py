@@ -1,0 +1,317 @@
+"""The port's tensor parallelism (``vits_torch/parallel/mesh.py``:
+``make_mesh_2d``, ``tp_shard_generator``, ``gather_state_dict``) against one
+process on the global batch, on the CPU: four gloo ranks on a 2 x 2 (data,
+model) mesh, launched once (``mesh.spawn``) for every check here.
+
+The model is the JAX dryrun's tiny one (``graft_entry._dryrun_model_and_batch``)
+with the probe discriminator and dropout off; the global batch has 4 rows
+(2 a data rank) and one set of draws, made for the global batch, which each
+data rank cuts to its rows. Tolerances: metrics rtol 1e-5 (the same f32
+sums; the split convs sum each output channel over the same inputs);
+gradients and updated parameters as ``tests/test_torch_ddp.py`` holds them
+(1e-3 of a tensor's norm + 1e-6 of the global norm; parameters within 1e-3
+of the update's norm where the gradient's sign is settled, 2.01 x lr
+elsewhere). Model peers hold their replicated parameters bit for bit equal.
+
+The ranks run in new processes (the spawn start method) that import this
+module for ``_tp_rank``; JAX is imported inside the tests that use it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vits_torch import graft_entry
+from vits_torch.ops.phaseaug import sample_phi
+from vits_torch.parallel import mesh
+from vits_torch.training import step as t_step
+
+N_DATA, N_MODEL, B = 2, 2, 4
+METRICS = dict(rtol=1e-5, atol=0)
+METRIC_NAMES = (
+    "loss/g/score", "loss/g/fm", "loss/g/mel", "loss/g/dur", "loss/g/kl", "loss/g/yindec",
+    "loss/g/yinshift", "loss/g/total", "loss/d/total", "loss/d/real", "loss/d/gen",
+    "grad_norm/g", "grad_norm/d",
+)
+
+
+def _no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def _setup():
+    """The tiny models' weights, the global batch of B rows and its draws."""
+    hps, model, disc, batch = graft_entry._dryrun_model_and_batch(B)
+    gen = torch.Generator().manual_seed(5)
+    noise = model.draw_noise(B, batch["x"].shape[1], batch["spec"].shape[1], gen)
+    noise.update(phi_d=sample_phi(2 * B, gen), phi_g=sample_phi(2 * B, gen))
+    return hps, model, disc, batch, noise
+
+
+def _state(data, bf16=False):
+    hps, model, disc, _ = graft_entry._dryrun_model_and_batch(B, bf16=bf16)
+    model.load_state_dict(data["g"])
+    disc.load_state_dict(data["d"])
+    return hps, _no_dropout(model), disc
+
+
+def _arrays(named):
+    return {k: (v.detach().numpy().copy(), v.grad.numpy().copy()) for k, v in named}
+
+
+def _gathered_grads(model, m):
+    out = {}
+    for name, p in model.named_parameters():
+        dim = getattr(p, "tp_dim", None)
+        g = p.grad if dim is None else mesh._all_gather_cat(p.grad, dim, m.model_group,
+                                                             m.n_model)
+        out[name] = g.numpy().copy()
+    return out
+
+
+class _SummedGather(torch.autograd.Function):
+    """A channel gather whose backward sums the gradient over the model
+    group before taking the slice (a reduce-scatter, what
+    ``torch.distributed.nn.functional.all_gather``'s backward does)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, m):
+        ctx.dim, ctx.start, ctx.size, ctx.m = dim, m.model_index * x.shape[dim], x.shape[dim], m
+        return mesh._all_gather_cat(x, dim, m.model_group, m.n_model)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = mesh._all_reduce_sum(grad, ctx.m.model_group)
+        return whole.narrow(ctx.dim, ctx.start, ctx.size), None, None
+
+
+def _tp_rank(data: dict) -> dict:
+    """One rank of the 2 x 2 mesh: the round trip, the TP step, the step
+    with a summed gather backward, the step without the input all-reduce,
+    and a bf16 step, each from the same weights."""
+    torch.set_num_threads(1)
+    m = mesh.make_mesh_2d(N_DATA, N_MODEL)
+    rows = mesh.rank_rows(data["batch"], m.data_index, N_DATA, B)
+    full = m.data_index == 0  # ranks 0 and 1 return whole states, 2 and 3 their replicas
+    out = {"mesh": (m.data_index, m.model_index)}
+
+    def run(key, bf16=False):
+        hps, model, disc = _state(data, bf16)
+        mesh.tp_shard_generator(model, m)
+        st = t_step.replicate_state(t_step.create_train_state(model, disc, hps, 100), hps)
+        metrics = {k: v.item() for k, v in t_step.train_step(st, rows, hps,
+                                                             noise=data["noise"]).items()}
+        params = mesh.gather_state_dict(model, m)
+        grads = _gathered_grads(model, m)
+        replicated = {k: p.detach().numpy().copy() for k, p in model.named_parameters()
+                      if getattr(p, "tp_dim", None) is None}
+        out[key] = {"metrics": metrics, "replicated": replicated}
+        if full:
+            out[key]["model"] = {k: (params[k].numpy().copy(), grads[k]) for k in grads}
+            out[key]["disc"] = _arrays(disc.named_parameters())
+            out[key]["split"] = {k: p.tp_dim for k, p in model.named_parameters()
+                                 if getattr(p, "tp_dim", None) is not None}
+
+    hps, model, _ = _state(data)
+    mesh.tp_shard_generator(model, m)
+    back = mesh.gather_state_dict(model, m)
+    out["round_trip"] = (sorted(back) == sorted(data["g"]) and all(
+        torch.equal(back[k], data["g"][k]) for k in back))
+    out["split_shapes"] = {k: tuple(p.shape) for k, p in model.named_parameters()
+                           if getattr(p, "tp_dim", None) is not None}
+
+    run("tp")
+    real_gather, real_copy = mesh.gather_from_model, mesh.copy_to_model
+    try:
+        mesh.gather_from_model = lambda x, dim, mm: _SummedGather.apply(x, dim, mm)
+        run("summed_gather")
+        mesh.gather_from_model = real_gather
+        mesh.copy_to_model = lambda x, mm: x
+        run("no_input_all_reduce")
+    finally:
+        mesh.gather_from_model, mesh.copy_to_model = real_gather, real_copy
+    run("bf16", bf16=True)
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    hps, model, disc, batch, noise = _setup()
+    _no_dropout(model)
+    data = {"g": model.state_dict(), "d": disc.state_dict(), "batch": batch, "noise": noise}
+    ranks = mesh.spawn(_tp_rank, N_DATA * N_MODEL, data, device="cpu", timeout=300)
+
+    def one_process(bf16=False):
+        h, mdl, dsc = _state(data, bf16)
+        st = t_step.create_train_state(mdl, dsc, h, 100)
+        metrics = {k: v.item() for k, v in t_step.train_step(st, batch, h, noise=noise).items()}
+        return metrics, {"model": _arrays(mdl.named_parameters()),
+                         "disc": _arrays(dsc.named_parameters())}
+
+    return dict(ranks=ranks, one=one_process(), one_bf16=one_process(bf16=True),
+                initial={"model": {k: v.numpy() for k, v in data["g"].items()},
+                         "disc": {k: v.numpy() for k, v in data["d"].items()}},
+                lr=hps.train.learning_rate)
+
+
+def _grad_errors(got, want, total):
+    """{name: (||g - g_ref||, its tolerance)} over one side's tensors."""
+    return {k: (float(np.linalg.norm(g - want[k][1])),
+                1e-3 * float(np.linalg.norm(want[k][1])) + 1e-6 * total)
+            for k, (_, g) in got.items()}
+
+
+def test_mesh_places_rank_r_at_its_row_and_column(runs):
+    assert [r["mesh"] for r in runs["ranks"]] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+@pytest.mark.parametrize("name", METRIC_NAMES)
+def test_tp_metric_matches_the_global_batch(runs, name):
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r["tp"]["metrics"][name], runs["one"][0][name], **METRICS)
+
+
+@pytest.mark.parametrize("side", ["model", "disc"])
+def test_tp_gradients_match_per_tensor(runs, side):
+    got = runs["ranks"][0]["tp"][side]
+    want = runs["one"][1][side]
+    assert set(got) == set(want)
+    total = runs["one"][0][f"grad_norm/{'g' if side == 'model' else 'd'}"]
+    bad = {k: e for k, e in _grad_errors(got, want, total).items() if e[0] > e[1]}
+    assert not bad, bad
+
+
+def test_tp_updates_parameters_as_the_global_batch(runs):
+    from tests.test_torch_ddp import settled_update_error
+
+    for side in ("model", "disc"):
+        total = runs["one"][0][f"grad_norm/{'g' if side == 'model' else 'd'}"]
+        for k, (p, _) in runs["ranks"][0]["tp"][side].items():
+            p_ref, g_ref = runs["one"][1][side][k]
+            rel, rest = settled_update_error(p, p_ref, runs["initial"][side][k], g_ref, total)
+            assert rel <= 1e-3 and rest <= 2.01 * runs["lr"], (side, k, rel, rest)
+
+
+@pytest.mark.parametrize("key", ["tp", "bf16"])
+def test_model_peers_hold_equal_replicas(runs, key):
+    """Ranks (d, 0) and (d, 1) hold every replicated parameter bit for bit
+    alike after the step, and log the same metrics."""
+    for d in range(N_DATA):
+        a, b = runs["ranks"][2 * d][key], runs["ranks"][2 * d + 1][key]
+        assert a["metrics"] == b["metrics"]
+        assert set(a["replicated"]) == set(b["replicated"])
+        for k, v in a["replicated"].items():
+            np.testing.assert_array_equal(v, b["replicated"][k], err_msg=k)
+
+
+def test_shard_then_gather_is_an_exact_round_trip(runs):
+    assert all(r["round_trip"] for r in runs["ranks"])
+
+
+def test_split_tensors_are_jax_placement(runs):
+    """The tensors split on output channels are, through the name
+    converter, those JAX's ``tp_shard_generator`` puts on ``'model'`` on
+    ``make_mesh_2d(4, 2)``: kernels, biases and Conv1d ``g``. The exception
+    is a transposed conv's ``g``: per input channel, JAX splits it on
+    ``'model'`` along its input channels (XLA gathers it where it is used);
+    the explicit split keeps it whole on every rank, because the rank's
+    slice of the weight needs every input channel's scale."""
+    import jax
+
+    from vits_tpu.parallel.mesh import make_mesh_2d as j_make_mesh_2d
+    from vits_tpu.parallel.mesh import tp_shard_generator as j_tp_shard_generator
+    from vits_tpu.utils import convert_torch as C
+    from vits_torch.utils.convert_jax import flax_to_state_dict
+
+    _, model, _, _, _ = _setup()
+    dec = model.waveform_decoder
+    sd = {f"waveform_decoder.{k}": v.numpy() for k, v in dec.state_dict().items()}
+    tree = C._hifigan(sd, "waveform_decoder", len(dec.ups), dec.num_kernels,
+                      len(dec.resblocks[0].convs1))
+    placed = j_tp_shard_generator({"waveform_decoder": tree, "emb_g": {"embedding": np.zeros(
+        (3, 16), np.float32)}}, j_make_mesh_2d(4, 2))
+    assert all(s is None for s in placed["emb_g"]["embedding"].sharding.spec)
+    on_model = jax.tree_util.tree_map(
+        lambda a: np.full(a.shape, float("model" in tuple(a.sharding.spec)), np.float32),
+        placed["waveform_decoder"])
+    marks = flax_to_state_dict(dec, on_model)
+    jax_split = {f"waveform_decoder.{k}" for k, v in marks.items() if v.all()}
+    assert not any(v.any() and not v.all() for v in marks.values())
+    transposed_g = {f"waveform_decoder.ups.{i}.weight_g" for i in range(len(dec.ups))}
+    port_split = set(runs["ranks"][0]["tp"]["split"])
+    assert port_split == jax_split - transposed_g
+    assert transposed_g & jax_split  # JAX does place them on 'model'
+    assert not port_split & transposed_g
+    assert port_split  # the rule splits something at these widths
+    for k, shape in runs["ranks"][0]["split_shapes"].items():
+        whole = runs["initial"]["model"][k].shape
+        dim = runs["ranks"][0]["tp"]["split"][k]
+        assert shape[dim] * N_MODEL == whole[dim], k
+
+
+def test_summed_gather_backward_fails_the_check(runs):
+    """A gather whose backward sums over the model ranks multiplies the
+    gradient by n_model at every split conv it passes: 2x at the last one
+    (the third upsampling stage's second resblock conv), ~127x the norm at
+    ``conv_pre`` (seven split convs deep, fewer through the residuals). The
+    gradient check fails (Adam's first step is sign-only, so the updated
+    parameters alone would not show it)."""
+    got, want = runs["ranks"][0]["summed_gather"]["model"], runs["one"][1]["model"]
+    errs = _grad_errors(got, want, runs["one"][0]["grad_norm/g"])
+    bad = {k for k, (e, tol) in errs.items() if e > tol}
+    assert {"waveform_decoder.conv_pre.weight", "waveform_decoder.cond.weight",
+            "waveform_decoder.ups.0.weight_v"} <= bad
+    k = "waveform_decoder.resblocks.2.convs2.0.weight_v"
+    np.testing.assert_allclose(got[k][1], N_MODEL * want[k][1], rtol=1e-4, atol=1e-12)
+    k = "waveform_decoder.conv_pre.weight"
+    assert np.linalg.norm(got[k][1]) > 100 * np.linalg.norm(want[k][1])
+
+
+def test_missing_input_all_reduce_fails_the_check(runs):
+    """Without the all-reduce of a split conv's input gradient each rank
+    passes upstream only its own channels' share: every split conv before
+    the last gets a wrong gradient, and the check fails on the upsampling
+    convs (``conv_pre``'s is 0.87 of its norm off too, but its norm lies
+    below the check's 1e-6 of the global one)."""
+    got, want = runs["ranks"][0]["no_input_all_reduce"]["model"], runs["one"][1]["model"]
+    errs = _grad_errors(got, want, runs["one"][0]["grad_norm/g"])
+    bad = {k for k, (e, tol) in errs.items() if e > tol}
+    assert {"waveform_decoder.ups.0.weight_v", "waveform_decoder.ups.1.weight_v"} <= bad
+    k = "waveform_decoder.conv_pre.weight"
+    assert np.linalg.norm(got[k][1] - want[k][1]) > 0.5 * np.linalg.norm(want[k][1])
+    assert "waveform_decoder.resblocks.2.convs2.0.weight_v" not in bad  # the last split conv
+
+
+def test_bf16_tp_step_gathers_bf16_over_gloo(runs):
+    """Under the bf16 policy the split convs gather bf16 activations (gloo
+    takes them through f32 on the CPU); the step is finite and its losses
+    are the one-process bf16 step's within bf16's rounding."""
+    got = runs["ranks"][0]["bf16"]["metrics"]
+    assert all(np.isfinite(v) for v in got.values())
+    for k in ("loss/g/total", "loss/d/total", "loss/g/mel"):
+        np.testing.assert_allclose(got[k], runs["one_bf16"][0][k], rtol=1e-2, err_msg=k)
+
+
+def test_2d_command_line_runs_the_dryrun(capsys):
+    metrics = graft_entry.main(["2d", "4", "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == (f"dryrun_multichip_2d(4): ok, loss/g/total={metrics['loss/g/total']:.3f} "
+                       f"loss/d/total={metrics['loss/d/total']:.3f}")
+    assert np.isfinite(list(metrics.values())).all()
+
+
+@pytest.mark.parametrize("n", [2, 3, 5])
+def test_2d_dryrun_needs_an_even_count_of_four_or_more(n):
+    """JAX's ValueError, raised before any process starts."""
+    with open(graft_entry.CONFIG.parent.parent / "__graft_entry__.py") as f:
+        assert "dryrun_multichip_2d needs an even n_devices >= 4" in f.read()
+    with pytest.raises(ValueError, match="^dryrun_multichip_2d needs an even n_devices >= 4$"):
+        graft_entry.main(["2d", str(n), "--device", "cpu"])
+
+
+def test_mesh_needs_the_whole_world():
+    with pytest.raises(ValueError, match="a 2 x 2 mesh needs 4 processes; the group has 1"):
+        mesh.make_mesh_2d(2, 2)

@@ -10,13 +10,19 @@
                          the probe discriminator of the JAX dryrun, through
                          ``parallel.mesh`` and ``training.step`` as a
                          ``--distributed`` run takes them.
+  dryrun_multichip_2d(n) -> the same step on an (n/2) x 2 (data, model) mesh:
+                         the batch's first n/2 rows over the data ranks, the
+                         HiFi-GAN decoder's channels split over the model
+                         ranks (``mesh.tp_shard_generator``).
 
-    python -m vits_torch.graft_entry [N] [--device cpu]   # dryrun_multichip(N), N=2
+    python -m vits_torch.graft_entry [N] [--device cpu]      # dryrun_multichip(N), N=2
+    python -m vits_torch.graft_entry 2d [N] [--device cpu]   # dryrun_multichip_2d(N), N=8
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 from pathlib import Path
 
 import numpy as np
@@ -70,10 +76,11 @@ def tiny_hps(**train) -> HParams:
     )
 
 
-def _dryrun_model_and_batch(n: int):
+def _dryrun_model_and_batch(n: int, bf16: bool = False):
     """The JAX dryrun's tiny flagship-shaped model (every structural piece,
     depths and widths turned down) and the probe discriminator, both on the
-    CPU, and its global batch of ``n`` rows (one a rank)."""
+    CPU (under the bf16 policy if ``bf16``), and its global batch of ``n``
+    rows (one a rank)."""
     hps = tiny_hps()
     torch.manual_seed(0)
     model = SynthesizerTrn(
@@ -84,9 +91,10 @@ def _dryrun_model_and_batch(n: int):
         upsample_rates=[8, 8, 2, 2], upsample_initial_channel=16,
         upsample_kernel_sizes=[16, 16, 4, 4], yin_channels=80, yin_start=15, yin_scope=50,
         yin_shift_range=15, n_speakers=3, gin_channels=16, posterior_layers=2,
-        flow_n_flows=1, flow_wn_layers=1, dur_n_flows=1, yin_dec_layers=2, device="cpu",
+        flow_n_flows=1, flow_wn_layers=1, dur_n_flows=1, yin_dec_layers=2, bf16=bf16,
+        device="cpu",
     )
-    disc = probe_discriminator(segment_size=2048, device="cpu")
+    disc = probe_discriminator(segment_size=2048, bf16=bf16, device="cpu")
     b, tx, ty, hop = n, 9, 16, 256
     rng = np.random.default_rng(0)
     batch = {
@@ -135,13 +143,76 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     return metrics[0]
 
 
+def _replicated_digest(model: torch.nn.Module) -> str:
+    """A digest of the bytes of every parameter a rank holds whole."""
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        if getattr(p, "tp_dim", None) is None:
+            h.update(name.encode())
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dryrun_2d_rank(n: int, device_type: str) -> dict:
+    """One rank of ``dryrun_multichip_2d``: the mesh, its data row's row of
+    the batch, the decoder split over its model row, one step; the global
+    metrics and a digest of its replicated parameters."""
+    torch.set_num_threads(1)
+    if device_type == "cuda":  # model peers must compute their replicas bit for bit alike
+        torch.backends.cudnn.deterministic = True
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device("cpu"))
+    m = mesh.make_mesh_2d(n // 2, 2)
+    hps, model, disc, batch = _dryrun_model_and_batch(n)
+    batch = {k: v[: m.n_data] for k, v in batch.items()}
+    mesh.tp_shard_generator(model.to(dev), m)
+    state = replicate_state(
+        create_train_state(model, disc.to(dev), hps, steps_per_epoch=100), hps)
+    rows = mesh.rank_rows(batch, m.data_index, m.n_data, m.n_data)
+    metrics = train_step(state, rows, hps, generator=torch.Generator(dev).manual_seed(1))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "replicated": _replicated_digest(model), "model_index": m.model_index}
+
+
+def dryrun_multichip_2d(n_devices: int, device=None) -> dict:
+    """One training step on an ``n_devices / 2`` x 2 (data, model) mesh of
+    gloo processes on ``device`` (as ``dryrun_multichip``): the batch's first
+    ``n_devices / 2`` rows over the data ranks, the decoder's channels over
+    the model ranks. Prints the JAX dryrun's ``ok`` line and returns rank
+    0's (global) metrics; raises if the ranks' metrics differ or model
+    peers' replicated parameters do."""
+    if n_devices < 4 or n_devices % 2:
+        raise ValueError("dryrun_multichip_2d needs an even n_devices >= 4")
+    device = resolve_device(device)
+    ranks = mesh.spawn(_dryrun_2d_rank, n_devices, n_devices, device.type, device=device,
+                       backend="gloo")
+    metrics = ranks[0]["metrics"]
+    if not all(np.isfinite(v) for r in ranks for v in r["metrics"].values()) or any(
+            r["metrics"] != metrics for r in ranks):
+        raise AssertionError(f"dryrun_multichip_2d({n_devices}): ranks disagree or a loss is "
+                             f"not finite: {[r['metrics'] for r in ranks]}")
+    for d in range(0, n_devices, 2):
+        if ranks[d]["replicated"] != ranks[d + 1]["replicated"]:
+            raise AssertionError(f"dryrun_multichip_2d({n_devices}): ranks {d} and {d + 1} "
+                                 "hold different replicated parameters after the step")
+    print(f"dryrun_multichip_2d({n_devices}): ok, "
+          f"loss/g/total={metrics['loss/g/total']:.3f} loss/d/total={metrics['loss/d/total']:.3f}")
+    return metrics
+
+
 def main(argv=None) -> dict:
-    """``python -m vits_torch.graft_entry [N] [--device cpu]``."""
-    ap = argparse.ArgumentParser(description="one data-parallel train step over N processes")
-    ap.add_argument("n", type=int, nargs="?", default=2)
+    """``python -m vits_torch.graft_entry [N] [--device cpu]`` or
+    ``python -m vits_torch.graft_entry 2d [N] [--device cpu]``."""
+    ap = argparse.ArgumentParser(description="one train step over N processes: data parallel, "
+                                 "or with '2d' on an N/2 x 2 (data, model) mesh")
+    ap.add_argument("args", nargs="*", metavar="[2d] [N]")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
-    return dryrun_multichip(args.n, device=args.device)
+    if args.args[:1] == ["2d"]:
+        n = int(args.args[1]) if len(args.args) > 1 else 8
+        return dryrun_multichip_2d(n, device=args.device)
+    n = int(args.args[0]) if args.args else 2
+    return dryrun_multichip(n, device=args.device)
 
 
 if __name__ == "__main__":

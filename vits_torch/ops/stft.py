@@ -2,10 +2,17 @@
 
 The same semantics as the JAX version: reflect-pad by (n_fft - hop) / 2,
 center=False frames, periodic Hann window folded into a real-DFT basis, one
-f32 matmul, magnitude sqrt(re^2 + im^2 + 1e-6); the mel projection uses a
+matmul, magnitude sqrt(re^2 + im^2 + 1e-6); the mel projection uses a
 librosa-style Slaney filterbank and log(clamp(x, 1e-5)) compression. The
 bases are built in f64 by numpy and cast to f32, as the JAX version builds
 them. All spectral math is f32 whatever the compute policy.
+
+The two matmuls (the DFT and the filterbank) take their f32 operands to f64,
+sum there and round the result to f32 (``_f32_product``): the f32 inputs'
+exact products, whatever reduced f32 matmul precision is set globally. With
+TF32 matmuls on a card, or ``torch.set_float32_matmul_precision("medium")``
+on a CPU with bf16 matrix units, an f32 matmul would round its operands and
+move the log-mel of a quiet bin by 1e-3 to 1e-2.
 """
 
 from __future__ import annotations
@@ -84,8 +91,17 @@ def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _on_device(make, device: torch.device, *args) -> torch.Tensor:
-    """A numpy constant ``make(*args)`` as a tensor on ``device``, copied once."""
-    return torch.from_numpy(make(*args)).to(device)
+    """A numpy f32 constant ``make(*args)`` as an f64 tensor on ``device``,
+    copied once; a normal tensor even when the first call comes from
+    ``torch.inference_mode`` (serving), so training can use it later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device, torch.float64)
+
+
+def _f32_product(a: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """``a @ basis`` for an f32 ``a`` and an f64 copy of an f32 ``basis``:
+    products exact and sums in f64, rounded once to f32."""
+    return torch.matmul(a.to(torch.float64), basis).to(torch.float32)
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -102,7 +118,7 @@ def spectrogram(
         p = (n_fft - hop_size) // 2
         y = F.pad(y[:, None], (p, p), mode="reflect")[:, 0]
     frames = frame_signal(y, n_fft, hop_size)
-    spec = torch.matmul(frames, _on_device(_dft_basis, y.device, n_fft, win_size))
+    spec = _f32_product(frames, _on_device(_dft_basis, y.device, n_fft, win_size))
     n_freqs = 1 + n_fft // 2
     re, im = spec[..., :n_freqs], spec[..., n_freqs:]
     return torch.sqrt(re * re + im * im + 1e-6)
@@ -114,7 +130,7 @@ def spec_to_mel(
 ) -> torch.Tensor:
     """Linear spectrogram [B, T, F] -> log-mel [B, T, n_mels], f32."""
     basis = _on_device(mel_filterbank, spec.device, sampling_rate, n_fft, num_mels, fmin, fmax)
-    mel = torch.matmul(spec.to(torch.float32), basis.T)
+    mel = _f32_product(spec.to(torch.float32), basis.T)
     return spectral_normalize(mel)
 
 

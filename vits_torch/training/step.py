@@ -55,6 +55,14 @@ The D step goes through the discriminator's wrapper; the G step applies the
 plain discriminator (frozen), so its reducer waits for no gradient there.
 Every generator and discriminator parameter gets a gradient in a step, so
 DDP needs neither ``find_unused_parameters`` nor ``static_graph``.
+
+Tensor parallel on a 2-D mesh (``parallel.mesh.make_mesh_2d``, then
+``tp_shard_generator`` before ``create_train_state``): the "ranks" above
+are the data ranks (``mesh.data_index`` / ``data_count``), DDP and the means
+run over the data group, and the model peers of a data rank hold the same
+rows and draws. The decoder's split convs gather their channels inside the
+forward, so every model peer computes the same losses; the gradient norm
+sums the split tensors' shares over the model group (``mesh.grad_norm``).
 """
 
 from __future__ import annotations
@@ -181,7 +189,7 @@ def apply_update(optim, schedule, loss, nan_guard: bool):
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])  # optax.global_norm
+    grad_norm = mesh.grad_norm(params)  # optax.global_norm
     lr = schedule(update_count(optim))
     for group in optim.param_groups:
         group["lr"] = lr
@@ -221,7 +229,7 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     nan_guard = bool(hps.train.get("nan_guard", False))
 
     ddp = state.ddp is not None
-    world = mesh.process_count() if ddp else 1
+    world = mesh.data_count() if ddp else 1
     batch_global = bsz * world
 
     noise = dict(noise or {})
@@ -231,7 +239,7 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
         if k not in noise:
             noise[k] = sample_phi(2 * batch_global, generator, dev)
     if ddp:
-        noise = mesh.rank_rows(noise, mesh.process_index(), world, batch_global)
+        noise = mesh.rank_rows(noise, mesh.data_index(), world, batch_global)
     phi_d, phi_g = (torch.as_tensor(noise[k], device=dev) for k in ("phi_d", "phi_g"))
 
     if ddp:
