@@ -94,6 +94,14 @@ to the CPU):
                checkpoint every 16 steps, analyze and synth; finite curves,
                8 held-out texts, mas_fused once a train step and once a
                validation batch
+ 12. bf16-cpu  the tiny configuration's train step (probe discriminator)
+               under the bf16 policy and in f32, on the card and on the CPU,
+               from the same weights and draws on the CPU f32 step's MAS
+               path, TF32 off, cuDNN deterministic: each group's forward and
+               gradient gap against the CPU's f32 step (posterior encoders,
+               the rest of the generator, the decoder, the discriminator);
+               every group's card gaps within 1.15 x the CPU's plus the
+               card's f32 gap
 Then no process the phases started (loader workers, nvcc, torchrun, ranks)
 may be left running: any still alive after 10 s is killed and the script
 fails.
@@ -586,32 +594,15 @@ def tiny_train_step_pair(seed, **train):
     from vits_torch.graft_entry import tiny_hps
     from vits_torch.models.avocodo import probe_discriminator
     from vits_torch.models.synthesizer import SynthesizerTrn
-    from vits_torch.ops.phaseaug import sample_phi
     from vits_torch.training.step import create_train_state, train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     hps = tiny_hps(**train)
-    rng = np.random.default_rng(seed)
     b, t_x, t_y = 2, 9, 16
-    batch = {
-        "x": rng.integers(1, 30, (b, t_x)), "t": rng.integers(0, 6, (b, t_x)),
-        "x_lengths": np.full(b, t_x), "spec_lengths": np.full(b, t_y),
-        "spec": np.abs(rng.standard_normal((b, t_y, 513))).astype(np.float32),
-        "ying": rng.uniform(0, 1, (b, t_y, 80)).astype(np.float32),
-        "wav": (rng.standard_normal((b, t_y * 256, 1)) * 0.1).astype(np.float32),
-        "sid": rng.integers(0, 3, b),
-    }
-    gen = torch.Generator().manual_seed(seed)
-    noise = {
-        "eps_spec": rng.standard_normal((b, t_y, 16)).astype(np.float32),
-        "eps_yin": rng.standard_normal((b, t_y, 80)).astype(np.float32),
-        "scope_shift": rng.integers(-15, 15, b).astype(np.int32),
-        "e_q": rng.standard_normal((b, t_x, 2)).astype(np.float32),
-        "slice_u": rng.uniform(0, 1, b).astype(np.float32),
-        "phi_d": sample_phi(2 * b, gen).numpy(), "phi_g": sample_phi(2 * b, gen).numpy(),
-    }
+    batch, noise = policy_batch(TINY_TRAIN["inter_channels"], TINY_TRAIN["yin_channels"], b, t_x,
+                                [t_y] * b, seed, n_speakers=TINY_TRAIN["n_speakers"])
     states, outs, metrics = [], [], []
     for dev in ("cpu", "cuda"):
         torch.manual_seed(seed)
@@ -675,6 +666,166 @@ def check_train_card_against_cpu(card, seed):
     if bad:
         raise AssertionError(f"train step card vs CPU: {bad[:10]}")
     return errs, worst_grad, worst_param
+
+
+BF16_GROUPS = ("posterior encoders", "generator rest", "decoder", "discriminator")
+
+
+def param_group(side: str, name: str) -> str:
+    """The bf16 policy's group of a train state's parameter."""
+    if side == "disc":
+        return "discriminator"
+    if name.startswith(("posterior_encoder.", "pitch_encoder.")):
+        return "posterior encoders"
+    return "decoder" if name.startswith("waveform_decoder.") else "generator rest"
+
+
+def policy_batch(inter_channels, yin_channels, b, t_x, t_ys, seed, n_speakers=2):
+    """A train batch of ``b`` rows (frames ``t_ys``) and every draw of one
+    step, as numpy arrays from ``seed``."""
+    from vits_torch.ops.phaseaug import sample_phi
+
+    rng = np.random.default_rng(seed)
+    t_y = max(t_ys)
+    batch = {
+        "x": rng.integers(1, 30, (b, t_x)), "t": rng.integers(0, 6, (b, t_x)),
+        "x_lengths": np.full(b, t_x), "spec_lengths": np.asarray(t_ys),
+        "spec": np.abs(rng.standard_normal((b, t_y, 513))).astype(np.float32),
+        "ying": rng.uniform(0, 1, (b, t_y, yin_channels)).astype(np.float32),
+        "wav": (rng.standard_normal((b, t_y * 256, 1)) * 0.1).astype(np.float32),
+        "sid": rng.integers(0, n_speakers, b),
+    }
+    gen = torch.Generator().manual_seed(seed)
+    noise = {
+        "eps_spec": rng.standard_normal((b, t_y, inter_channels - yin_channels)).astype(np.float32),
+        "eps_yin": rng.standard_normal((b, t_y, yin_channels)).astype(np.float32),
+        "scope_shift": rng.integers(-15, 15, b).astype(np.int32),
+        "e_q": rng.standard_normal((b, t_x, 2)).astype(np.float32),
+        "slice_u": rng.uniform(0, 1, b).astype(np.float32),
+        "phi_d": sample_phi(2 * b, gen).numpy(), "phi_g": sample_phi(2 * b, gen).numpy(),
+    }
+    return batch, noise
+
+
+def policy_step(make_model, make_disc, hps, batch, noise, dev, bf16, seed, attn=None):
+    """One train step on ``dev`` under the bf16 policy or in f32, from the
+    weights ``seed`` makes, dropout off; ``attn`` (a MAS path) replaces
+    MAS, so that runs in other precisions align the same frames. Returns
+    the step's flat forward outputs and gradients by group, and its path."""
+    from vits_torch.models import synthesizer as syn
+    from vits_torch.training.step import create_train_state, train_step
+
+    torch.manual_seed(seed)
+    model, disc = make_model(bf16), make_disc(bf16)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    state = create_train_state(model.to(dev), disc.to(dev), hps, steps_per_epoch=10)
+    out, d_out = {}, []
+    hooks = [model.register_forward_hook(lambda m, a, o: out.update(o)),
+             disc.register_forward_hook(lambda m, a, o: d_out.append(o[1]))]
+    mas = syn.maximum_path
+    if attn is not None:
+        syn.maximum_path = lambda neg_cent, mask: attn.to(neg_cent.device)
+    try:
+        train_step(state, batch, hps, noise=noise)
+    finally:
+        syn.maximum_path = mas
+        for h in hooks:
+            h.remove()
+
+    def flat(ts):
+        return torch.cat([t.detach().float().flatten().cpu() for t in ts])
+
+    fwd = {
+        "posterior encoders": flat([out["m_q"], out["logs_q"]]),
+        "generator rest": flat([out["z_p"], out["m_p"], out["logs_p"]]),
+        "decoder": flat(out["wav_hier"]),
+        "discriminator": flat(d_out[0]),  # the D step's logits of the generated audio
+    }
+    grads = {g: [] for g in BF16_GROUPS}
+    for side in ("model", "disc"):
+        for k, p in getattr(state, side).named_parameters():
+            grads[param_group(side, k)].append(p.grad)
+    return {"fwd": fwd, "grad": {g: flat(v) for g, v in grads.items()},
+            "attn": out["attn"].detach().cpu()}
+
+
+def policy_gaps(run, ref) -> dict:
+    """{group: (forward gap, gradient gap)}, each ||run - ref|| / ||ref||."""
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    return {g: (rel(run["fwd"][g], ref["fwd"][g]), rel(run["grad"][g], ref["grad"][g]))
+            for g in BF16_GROUPS}
+
+
+def policy_gap_table(make_model, make_disc, hps, batch, noise, seed, devices=("cpu", "cuda")):
+    """The f32 step on the CPU, then the bf16 step on each device and the
+    f32 step on each other device, all on the CPU's MAS path, TF32 off and
+    cuDNN deterministic: {(device, "bf16"|"f32"): {group: (forward gap,
+    gradient gap)}} against the CPU's f32 step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    ref = policy_step(make_model, make_disc, hps, batch, noise, "cpu", False, seed)
+    table = {}
+    for dev in devices:
+        for bf16 in (True, False) if dev != "cpu" else (True,):
+            run = policy_step(make_model, make_disc, hps, batch, noise, dev, bf16, seed,
+                              attn=ref["attn"])
+            table[(dev, "bf16" if bf16 else "f32")] = policy_gaps(run, ref)
+    return table
+
+
+# phase 12: under bf16 each group's card gap may be at most this multiple of
+# the CPU's (both against the CPU's f32 step), plus the card's f32 gap. The
+# same rounding code runs on both sides, so this sees the card's bf16
+# kernels (cuDNN's algorithms, their reductions), not where the port
+# rounds. Readings at this phase's shapes on an NVIDIA H100 80GB HBM3 at
+# 700 W (tools/bf16_bisect.py phase12): 0.986-1.038 x in every group; with
+# the card's bf16 convs made to sum split-K partials rounded to bf16 (a
+# fault a reduction in bf16 would make, ``--fault``), four partials
+# 1.17-1.32 x in the posterior encoders and the rest of the generator, two
+# 1.25 x in the rest's gradient. At the study's width the sound card read
+# 0.97-1.23 x (tools/bf16_bisect.py gaps), so the limit holds at these
+# shapes only.
+BF16_CARD_OVER_CPU = 1.15
+
+
+def check_bf16_card_against_cpu(card, seed):
+    """Phase 12: one train step at the tiny configuration (probe D) under
+    the bf16 policy on the card and on the CPU, and in f32 on both, from
+    the same weights and draws on the same MAS path, TF32 off: each group's
+    forward and gradient gap against the CPU's f32 step. Every group's card
+    gaps must stay within BF16_CARD_OVER_CPU x the CPU's, plus the card's
+    own f32 gap."""
+    from vits_torch.graft_entry import tiny_hps
+    from vits_torch.models.avocodo import probe_discriminator
+    from vits_torch.models.synthesizer import SynthesizerTrn
+
+    batch, noise = policy_batch(TINY_TRAIN["inter_channels"], TINY_TRAIN["yin_channels"], 2, 9,
+                                [16, 12], seed, n_speakers=TINY_TRAIN["n_speakers"])
+    table = policy_gap_table(
+        lambda bf16: SynthesizerTrn(**TINY_TRAIN, bf16=bf16, device="cpu"),
+        lambda bf16: probe_discriminator(segment_size=2048, bf16=bf16, device="cpu"),
+        tiny_hps(), batch, noise, seed)
+    for (dev, prec), gaps in table.items():
+        print(f"{card} | bf16 policy, tiny config + probe D, {dev} {prec} against the CPU's "
+              f"f32 step: " + ", ".join(f"{g} forward {f:.3e} gradient {d:.3e}"
+                                        for g, (f, d) in gaps.items()))
+    card_bf16, cpu_bf16, card_f32 = (table[k] for k in (("cuda", "bf16"), ("cpu", "bf16"),
+                                                        ("cuda", "f32")))
+    bad = [f"{group} {kind}" for group in BF16_GROUPS for i, kind in enumerate(("forward", "gradient"))
+           if card_bf16[group][i] > BF16_CARD_OVER_CPU * cpu_bf16[group][i] + card_f32[group][i]]
+    print(f"{card} | bf16 policy: card gap over CPU gap, " + ", ".join(
+        f"{group} forward {card_bf16[group][0] / cpu_bf16[group][0]:.3f} gradient "
+        f"{card_bf16[group][1] / cpu_bf16[group][1]:.3f}" for group in BF16_GROUPS)
+        + f" (tolerance {BF16_CARD_OVER_CPU} x the CPU's gap + the card's f32 gap)")
+    if bad:
+        raise AssertionError(f"bf16 policy: the card's {bad} gaps exceed "
+                             f"{BF16_CARD_OVER_CPU} x the CPU's")
+    return table
 
 
 SERVE_TEXTS = {
@@ -1808,6 +1959,7 @@ def main() -> int:
         tp = check_tp(card, str(ROOT / "configs" / "config_cje.yaml"), batch, Path(tmp),
                       args.seed)
         conv = check_convergence_tool(card, Path(tmp))
+    check_bf16_card_against_cpu(card, args.seed)
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")

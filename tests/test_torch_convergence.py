@@ -9,6 +9,7 @@ metrics must be finite.
 import filecmp
 import importlib.util
 import json
+import logging
 import os
 from pathlib import Path
 
@@ -92,6 +93,14 @@ def tiny_study(corpora):
         "batch_size": 2, "eval_interval": 2, "save_interval": 2, "log_interval": 1,
         "segment_size": 2048, "bf16_run": False})
     report = PORT.train(str(work), 1, device="cpu", config=cfg)
+    # The run's logger is process-wide, named by its directory ("run"), and
+    # keeps writing this run's train.log: a later run in this process under
+    # a directory of that name (tests/test_train_loop.py's) would find the
+    # handler set and write no train.log of its own. Close it.
+    logger = logging.getLogger("run")
+    for handler in logger.handlers[:]:
+        logger.removeHandler(handler)
+        handler.close()
     rows = PORT.analyze(str(work), device="cpu")
     summary = PORT.synth(str(work), device="cpu")
     return work, report, rows, summary

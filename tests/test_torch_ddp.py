@@ -18,9 +18,12 @@ check can have the other sign there); on those elements the parameters
 must agree within 1e-3 of the update's norm, elsewhere (a gradient near 0,
 either sign) within 2.01 x lr.
 
-The ranks run in new processes (the spawn start method) that import this
-module for ``_rank_steps``.
+The ranks run in new processes (the spawn start method) that import
+``tests/_torch_ranks.py`` for ``ddp_rank_steps``: no JAX, one thread, the
+model's arguments, hps, weights, batch and draws in the payload.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import optax
@@ -34,12 +37,11 @@ from vits_tpu.models.avocodo import probe_discriminator as j_probe
 from vits_tpu.parallel import mesh as j_mesh
 from vits_tpu.training import step as j_step
 
-from vits_torch.models.avocodo import probe_discriminator
-from vits_torch.models.synthesizer import SynthesizerTrn
 from vits_torch.parallel import mesh
 from vits_torch.training import step as t_step
 from vits_torch.utils.convert_jax import flax_to_state_dict
 
+from tests._torch_ranks import ddp_rank_steps, state_arrays
 from tests.test_torch_train_step import (  # noqa: F401  (weights is a fixture)
     HPS,
     J_HPS,
@@ -48,9 +50,7 @@ from tests.test_torch_train_step import (  # noqa: F401  (weights is a fixture)
     SEG,
     TINY,
     DeterministicSynthesizer,
-    _hps,
     _jax_noise,
-    _no_dropout,
     _port_state,
     keep_grads,
     weights,
@@ -75,82 +75,44 @@ def _global_batch():
     }
 
 
-def _numpy(state):
-    return {side: {k: (p.detach().numpy().copy(), p.grad.numpy().copy())
-                   for k, p in getattr(state, side).named_parameters()}
-            for side in ("model", "disc")}
-
-
-def _rank_steps(payload: str) -> dict:
-    """One rank: the global step, a second step (DDP raises there if a
-    parameter got no gradient in the first), the step with per-rank ratio
-    denominators, and the remat step, each from the same weights."""
-    torch.set_num_threads(2)
-    data = torch.load(payload, weights_only=False)
-    rows = mesh.rank_rows(data["batch"], mesh.process_index(), WORLD, B)
-
-    def state(hps):
-        model = SynthesizerTrn(**TINY, device="cpu")
-        model.load_state_dict(data["g"])
-        disc = probe_discriminator(segment_size=SEG, device="cpu")
-        disc.load_state_dict(data["d"])
-        st = t_step.create_train_state(_no_dropout(model), disc, hps, steps_per_epoch=10)
-        return t_step.replicate_state(st, hps)
-
-    def step(st, hps, **kw):
-        return {k: v.item() for k, v in t_step.train_step(st, rows, hps, **kw).items()}
-
-    out = {}
-    st = state(HPS)
-    out["global"] = step(st, HPS, noise=data["noise"]), _numpy(st)
-    out["second"] = step(st, HPS, generator=torch.Generator().manual_seed(3))
-    shared = t_step.ratio_denominator
-    t_step.ratio_denominator = lambda total: total.float()  # each rank's own
-    try:
-        st = state(HPS)
-        out["per_rank_ratio"] = step(st, HPS, noise=data["noise"]), _numpy(st)
-    finally:
-        t_step.ratio_denominator = shared
-    remat = _hps(remat_run=True)
-    st = state(remat)
-    out["remat"] = step(st, remat, noise=data["noise"]), _numpy(st)
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs(weights, tmp_path_factory):
     batch = _global_batch()
     noise, _ = _jax_noise(KEY, 0, B, T_X, T_Y)
-
-    one = _port_state(weights)
-    m_one = {k: v.item() for k, v in t_step.train_step(one, batch, HPS, noise=noise).items()}
-
-    g_params, d_params = weights
-    optim = optax.chain(keep_grads(), j_step.make_optimizer(J_HPS, steps_per_epoch=10))
-    j_state = j_step.TrainState(
-        step=jnp.zeros((), jnp.int32), g_params=g_params, d_params=d_params,
-        g_opt_state=optim.init(g_params), d_opt_state=optim.init(d_params),
-    )
-    j_new, j_metrics = jax.jit(lambda s, bt: j_step.train_step(
-        s, bt, KEY, model=DeterministicSynthesizer(**TINY), disc=j_probe(), optim_g=optim,
-        optim_d=optim, hps=J_HPS))(j_state, batch)
-    jax_ref = {}
-    for side, module in (("model", one.model), ("disc", one.disc)):
-        s = "g" if side == "model" else "d"
-        params = flax_to_state_dict(module, getattr(j_new, f"{s}_params"))
-        grads = flax_to_state_dict(module, getattr(j_new, f"{s}_opt_state")[0])
-        jax_ref[side] = {k: (np.asarray(params[k]).reshape(p.shape),
-                             np.asarray(grads[k], np.float32).reshape(p.shape))
-                         for k, p in module.named_parameters()}
-
     fresh = _port_state(weights)
     payload = tmp_path_factory.mktemp("ddp") / "payload.pt"
     torch.save({"g": fresh.model.state_dict(), "d": fresh.disc.state_dict(), "batch": batch,
-                "noise": noise}, payload)
-    ranks = mesh.spawn(_rank_steps, WORLD, str(payload), device="cpu", timeout=300)
+                "noise": noise, "tiny": TINY, "hps": HPS.to_dict(), "world": WORLD, "seg": SEG},
+               payload)
+    # the ranks step in their own processes while this one runs the
+    # references (the JAX step's XLA compile takes most of the fixture)
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(mesh.spawn, ddp_rank_steps, WORLD, str(payload), device="cpu",
+                            timeout=300)
+        one = _port_state(weights)
+        m_one = {k: v.item() for k, v in t_step.train_step(one, batch, HPS, noise=noise).items()}
+
+        g_params, d_params = weights
+        optim = optax.chain(keep_grads(), j_step.make_optimizer(J_HPS, steps_per_epoch=10))
+        j_state = j_step.TrainState(
+            step=jnp.zeros((), jnp.int32), g_params=g_params, d_params=d_params,
+            g_opt_state=optim.init(g_params), d_opt_state=optim.init(d_params),
+        )
+        j_new, j_metrics = jax.jit(lambda s, bt: j_step.train_step(
+            s, bt, KEY, model=DeterministicSynthesizer(**TINY), disc=j_probe(), optim_g=optim,
+            optim_d=optim, hps=J_HPS))(j_state, batch)
+        jax_ref = {}
+        for side, module in (("model", one.model), ("disc", one.disc)):
+            s = "g" if side == "model" else "d"
+            params = flax_to_state_dict(module, getattr(j_new, f"{s}_params"))
+            grads = flax_to_state_dict(module, getattr(j_new, f"{s}_opt_state")[0])
+            jax_ref[side] = {k: (np.asarray(params[k]).reshape(p.shape),
+                                 np.asarray(grads[k], np.float32).reshape(p.shape))
+                             for k, p in module.named_parameters()}
+        ranks = ranks.result()
     return dict(
         ranks=ranks,
-        one=(m_one, _numpy(one)),
+        one=(m_one, state_arrays(one)),
         jax=({k: float(v) for k, v in j_metrics.items()}, jax_ref),
         initial={side: {k: p.detach().numpy().copy()
                         for k, p in getattr(fresh, side).named_parameters()}

@@ -4,7 +4,6 @@ synthetic voices and serves what it saved; the batched-serving example
 answers 6 requests through the DynamicBatcher at the tiny serving
 configuration of ``tests/test_torch_serve.py``."""
 
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -12,15 +11,15 @@ from pathlib import Path
 import numpy as np
 import yaml
 
+from tests._torch_ranks import subprocess_env
 from tests.test_torch_serve import CFG as TINY_SERVE_CFG
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
 def _run(args, cwd=ROOT, timeout=300):
-    # two threads: the suite runs test files side by side
     proc = subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True, text=True,
-                          timeout=timeout, env={**os.environ, "OMP_NUM_THREADS": "2"})
+                          timeout=timeout, env=subprocess_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout
 

@@ -1,6 +1,7 @@
-"""The port's entry points on the CPU: the train CLI under torchrun
-with ``--distributed`` over 2 gloo ranks, ``vits_torch.graft_entry``'s
-``dryrun_multichip`` (through its command line) and ``entry``.
+"""The port's train CLI under torchrun with ``--distributed`` over 2 gloo
+ranks on the CPU (``tests/test_torch_graft_dryrun.py`` holds the other
+entry points: a refused global batch, ``vits_torch.graft_entry``'s
+``dryrun_multichip`` and ``entry``).
 
 The CLI runs ``tests/test_train_loop.py``'s TINY_CONFIG (global batch 2, one
 row a rank) on 4 voices: 2 steps with an evaluation and a checkpoint at step
@@ -19,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from vits_torch import graft_entry
 from vits_torch.config import load_hparams
 from vits_torch.serve.engine import TTSEngine
 from vits_torch.training.checkpoint import load_checkpoint
@@ -28,6 +28,7 @@ from vits_torch.training.train import build_discriminator
 from vits_torch.models.synthesizer import build_synthesizer
 
 from chip_smoke import processes_naming
+from tests._torch_ranks import subprocess_env
 from tests.test_torch_train_loop import _config, _write_data
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -41,7 +42,7 @@ def _torchrun(cfg, model_dir, nproc=2):
            "vits_torch.training.train", "-c", cfg, "-m", model_dir, "--distributed",
            "--device", "cpu"]
     return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
-                          env={**os.environ, "OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo"})
+                          env=subprocess_env())
 
 
 @pytest.fixture(scope="module")
@@ -94,46 +95,3 @@ def test_cli_checkpoints_load_strictly(cli_run):
     assert (state.step, epoch) == (6, 1)
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, eng.model.state_dict()[k]), k
-
-
-def test_distributed_cli_needs_divisible_global_batch(tmp_path):
-    """The global batch must split evenly over the ranks (the JAX message)."""
-    lines = _write_data(tmp_path, [48, 40])
-    (tmp_path / "train.csv").write_text("\n".join(lines), encoding="utf-8")
-    (tmp_path / "val.csv").write_text("\n".join(lines), encoding="utf-8")
-    proc = _torchrun(_config(tmp_path, train={"batch_size": 3}), str(tmp_path / "run"))
-    assert proc.returncode != 0
-    assert "global batch 3 not divisible by process count 2" in proc.stderr
-
-
-def test_dryrun_multichip_two_ranks(capsys):
-    metrics = graft_entry.main(["2", "--device", "cpu"])
-    out = capsys.readouterr().out.strip().splitlines()
-    assert out[-1] == (f"dryrun_multichip(2): ok, loss/g/total={metrics['loss/g/total']:.3f} "
-                       f"loss/d/total={metrics['loss/d/total']:.3f}")
-    assert np.isfinite(list(metrics.values())).all()
-
-
-def test_entry_synthesizes_on_the_cpu():
-    fn, args = graft_entry.entry(device="cpu")
-    model = args[0]
-    assert model.device.type == "cpu" and sum(p.numel() for p in model.parameters()) > 3e7
-    wav = fn(*args)
-    assert tuple(wav.shape) == (1, 256 * 256, 1) and torch.isfinite(wav).all()
-
-
-def test_entry_runs_on_the_card_by_default():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present, so the default device is valid here")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        graft_entry.entry()
-
-
-def test_dryrun_multichip_runs_on_the_card_by_default():
-    """Without ``device`` the ranks go to the cards: with none, it raises
-    before it starts a process."""
-    if torch.cuda.is_available():
-        pytest.skip("a card is present, so the default device is valid here")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        graft_entry.dryrun_multichip(2)
-

@@ -25,6 +25,10 @@ def _port_sources():
         ROOT / "tools" / "probe_step_grads.py",
         ROOT / "tools" / "probe_serve_threads.py",
         ROOT / "tools" / "convergence_torch.py",
+        ROOT / "tools" / "bf16_bisect.py",
+        ROOT / "tools" / "test_walls.py",
+        ROOT / "tools" / "time_phases.py",
+        ROOT / "tests" / "_torch_ranks.py",
         ROOT / "examples" / "quickstart_synthetic_torch.py",
         ROOT / "examples" / "serve_batched_torch.py",
     ]
@@ -35,6 +39,23 @@ def test_importing_every_port_module_loads_no_jax():
         "import importlib, pkgutil, sys, vits_torch\n"
         "for m in pkgutil.walk_packages(vits_torch.__path__, 'vits_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_spawned_ranks_load_no_jax():
+    """The module the port's multi-process tests' ranks import
+    (``tests/_torch_ranks.py``) brings in no JAX, directly or through what it
+    imports: a rank starts in the time torch and the port take."""
+    code = (
+        "import sys\n"
+        "import tests._torch_ranks\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n"

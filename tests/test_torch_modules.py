@@ -58,6 +58,8 @@ from vits_torch.ops import stft as t_stft
 from vits_torch.ops import yin as t_yin
 from vits_torch.utils.convert_jax import load_flax_params
 
+from tests._torch_ranks import worker_threads
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 STFT = dict(rtol=1e-5, atol=1e-4)
 SPLINE = dict(rtol=1e-4, atol=1e-4)
@@ -67,15 +69,17 @@ YIN_F64 = dict(rtol=2e-2, atol=2e-3)
 
 def share_the_cores() -> None:
     """Under pytest-xdist, cap PyTorch's intra-op threads at this worker's
-    share of the cores. By default every worker runs as many OpenMP threads
-    as the host has cores; with 6 workers on 8 cores their parallel regions
-    wait on threads the other workers hold, and two tiny train steps took
-    107 s against 7.7 s with one thread a worker (an 8-core host under the
-    same load). Every xdist worker collects every test module, so the cap
-    holds in all of them; a run without xdist keeps PyTorch's default."""
+    share of the CPUs it may use (``tests/_torch_ranks.py::worker_threads``:
+    the affinity mask and the cgroup's quota, not the host's core count). By
+    default every worker runs as many OpenMP threads as the host has cores;
+    with 6 workers on 8 cores their parallel regions wait on threads the
+    other workers hold, and two tiny train steps took 107 s against 7.7 s
+    with one thread a worker (an 8-core host under the same load). Every
+    xdist worker collects every test module, so the cap holds in all of
+    them; a run without xdist keeps PyTorch's default."""
     workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
     if workers:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * workers)))
+        torch.set_num_threads(worker_threads(workers))
 
 
 share_the_cores()

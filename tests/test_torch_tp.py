@@ -13,9 +13,12 @@ gradients and updated parameters as ``tests/test_torch_ddp.py`` holds them
 of the update's norm where the gradient's sign is settled, 2.01 x lr
 elsewhere). Model peers hold their replicated parameters bit for bit equal.
 
-The ranks run in new processes (the spawn start method) that import this
-module for ``_tp_rank``; JAX is imported inside the tests that use it.
+The ranks run in new processes (the spawn start method) that import
+``tests/_torch_ranks.py`` for ``tp_rank`` (no JAX, one thread); JAX is
+imported inside the tests here that use it.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -26,20 +29,16 @@ from vits_torch.ops.phaseaug import sample_phi
 from vits_torch.parallel import mesh
 from vits_torch.training import step as t_step
 
-N_DATA, N_MODEL, B = 2, 2, 4
+from tests._torch_ranks import TP_B as B
+from tests._torch_ranks import TP_DATA as N_DATA
+from tests._torch_ranks import TP_MODEL as N_MODEL
+from tests._torch_ranks import named_arrays, no_dropout, tp_rank, tp_state
 METRICS = dict(rtol=1e-5, atol=0)
 METRIC_NAMES = (
     "loss/g/score", "loss/g/fm", "loss/g/mel", "loss/g/dur", "loss/g/kl", "loss/g/yindec",
     "loss/g/yinshift", "loss/g/total", "loss/d/total", "loss/d/real", "loss/d/gen",
     "grad_norm/g", "grad_norm/d",
 )
-
-
-def _no_dropout(model):
-    for m in model.modules():
-        if isinstance(m, torch.nn.Dropout):
-            m.p = 0.0
-    return model
 
 
 def _setup():
@@ -51,107 +50,26 @@ def _setup():
     return hps, model, disc, batch, noise
 
 
-def _state(data, bf16=False):
-    hps, model, disc, _ = graft_entry._dryrun_model_and_batch(B, bf16=bf16)
-    model.load_state_dict(data["g"])
-    disc.load_state_dict(data["d"])
-    return hps, _no_dropout(model), disc
-
-
-def _arrays(named):
-    return {k: (v.detach().numpy().copy(), v.grad.numpy().copy()) for k, v in named}
-
-
-def _gathered_grads(model, m):
-    out = {}
-    for name, p in model.named_parameters():
-        dim = getattr(p, "tp_dim", None)
-        g = p.grad if dim is None else mesh._all_gather_cat(p.grad, dim, m.model_group,
-                                                             m.n_model)
-        out[name] = g.numpy().copy()
-    return out
-
-
-class _SummedGather(torch.autograd.Function):
-    """A channel gather whose backward sums the gradient over the model
-    group before taking the slice (a reduce-scatter, what
-    ``torch.distributed.nn.functional.all_gather``'s backward does)."""
-
-    @staticmethod
-    def forward(ctx, x, dim, m):
-        ctx.dim, ctx.start, ctx.size, ctx.m = dim, m.model_index * x.shape[dim], x.shape[dim], m
-        return mesh._all_gather_cat(x, dim, m.model_group, m.n_model)
-
-    @staticmethod
-    def backward(ctx, grad):
-        whole = mesh._all_reduce_sum(grad, ctx.m.model_group)
-        return whole.narrow(ctx.dim, ctx.start, ctx.size), None, None
-
-
-def _tp_rank(data: dict) -> dict:
-    """One rank of the 2 x 2 mesh: the round trip, the TP step, the step
-    with a summed gather backward, the step without the input all-reduce,
-    and a bf16 step, each from the same weights."""
-    torch.set_num_threads(1)
-    m = mesh.make_mesh_2d(N_DATA, N_MODEL)
-    rows = mesh.rank_rows(data["batch"], m.data_index, N_DATA, B)
-    full = m.data_index == 0  # ranks 0 and 1 return whole states, 2 and 3 their replicas
-    out = {"mesh": (m.data_index, m.model_index)}
-
-    def run(key, bf16=False):
-        hps, model, disc = _state(data, bf16)
-        mesh.tp_shard_generator(model, m)
-        st = t_step.replicate_state(t_step.create_train_state(model, disc, hps, 100), hps)
-        metrics = {k: v.item() for k, v in t_step.train_step(st, rows, hps,
-                                                             noise=data["noise"]).items()}
-        params = mesh.gather_state_dict(model, m)
-        grads = _gathered_grads(model, m)
-        replicated = {k: p.detach().numpy().copy() for k, p in model.named_parameters()
-                      if getattr(p, "tp_dim", None) is None}
-        out[key] = {"metrics": metrics, "replicated": replicated}
-        if full:
-            out[key]["model"] = {k: (params[k].numpy().copy(), grads[k]) for k in grads}
-            out[key]["disc"] = _arrays(disc.named_parameters())
-            out[key]["split"] = {k: p.tp_dim for k, p in model.named_parameters()
-                                 if getattr(p, "tp_dim", None) is not None}
-
-    hps, model, _ = _state(data)
-    mesh.tp_shard_generator(model, m)
-    back = mesh.gather_state_dict(model, m)
-    out["round_trip"] = (sorted(back) == sorted(data["g"]) and all(
-        torch.equal(back[k], data["g"][k]) for k in back))
-    out["split_shapes"] = {k: tuple(p.shape) for k, p in model.named_parameters()
-                           if getattr(p, "tp_dim", None) is not None}
-
-    run("tp")
-    real_gather, real_copy = mesh.gather_from_model, mesh.copy_to_model
-    try:
-        mesh.gather_from_model = lambda x, dim, mm: _SummedGather.apply(x, dim, mm)
-        run("summed_gather")
-        mesh.gather_from_model = real_gather
-        mesh.copy_to_model = lambda x, mm: x
-        run("no_input_all_reduce")
-    finally:
-        mesh.gather_from_model, mesh.copy_to_model = real_gather, real_copy
-    run("bf16", bf16=True)
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs():
     hps, model, disc, batch, noise = _setup()
-    _no_dropout(model)
+    no_dropout(model)
     data = {"g": model.state_dict(), "d": disc.state_dict(), "batch": batch, "noise": noise}
-    ranks = mesh.spawn(_tp_rank, N_DATA * N_MODEL, data, device="cpu", timeout=300)
 
     def one_process(bf16=False):
-        h, mdl, dsc = _state(data, bf16)
+        h, mdl, dsc = tp_state(data, bf16)
         st = t_step.create_train_state(mdl, dsc, h, 100)
         metrics = {k: v.item() for k, v in t_step.train_step(st, batch, h, noise=noise).items()}
-        return metrics, {"model": _arrays(mdl.named_parameters()),
-                         "disc": _arrays(dsc.named_parameters())}
+        return metrics, {"model": named_arrays(mdl.named_parameters()),
+                         "disc": named_arrays(dsc.named_parameters())}
 
-    return dict(ranks=ranks, one=one_process(), one_bf16=one_process(bf16=True),
+    # the ranks step in their own processes while this one runs the references
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(mesh.spawn, tp_rank, N_DATA * N_MODEL, data, device="cpu",
+                            timeout=300)
+        one, one_bf16 = one_process(), one_process(bf16=True)
+        ranks = ranks.result()
+    return dict(ranks=ranks, one=one, one_bf16=one_bf16,
                 initial={"model": {k: v.numpy() for k, v in data["g"].items()},
                          "disc": {k: v.numpy() for k, v in data["d"].items()}},
                 lr=hps.train.learning_rate)

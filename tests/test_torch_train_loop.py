@@ -287,7 +287,17 @@ def _jax_recorded_run(monkeypatch, cfg, model_dir, fed):
     monkeypatch.setattr(j_train, "create_train_state", fake_state)
     monkeypatch.setattr(j_train, "train_step", fake_step)
     monkeypatch.setattr(j_train, "evaluate", lambda *a, **k: {})
-    j_train.run(j_get_hparams(cfg, model_dir))
+    hps = j_get_hparams(cfg, model_dir)
+    # The JAX run's init batch leaves a loader thread running ahead beside
+    # the first epoch's, and its dataset writes a voice's feature cache with
+    # np.save, not atomically. With create_train_state faked (no XLA init in
+    # between), the epoch's thread could load a half-written cache (EOFError):
+    # that thread dies and the run waits for its batches forever. The same
+    # dataset code caches every voice first, one at a time.
+    train_ds = j_train.build_dataset(hps, "train")
+    for i in range(len(train_ds)):
+        train_ds[i]
+    j_train.run(hps)
 
 
 def _port_recorded_run(monkeypatch, cfg, model_dir, fed):

@@ -18,6 +18,8 @@ Subcommands (run from the repo root; ``--device cpu`` off the card):
   train   --workdir W --epochs N  the port's training CLI (vits_torch.training.train.run)
   analyze --workdir W             per-checkpoint metrics -> analysis.json (+ plot)
   synth   --workdir W             held-out-text synthesis order/duration check
+  plot    --runs R.json --out P   curves of several runs ({label: analysis rows};
+                                  --only label prefixes)
 
 ``analyze`` measures per eval checkpoint, with the port's model: (a) the
 duration loss on a fixed val batch; (b) MAS against the known alignment,
@@ -289,8 +291,10 @@ def analyze(workdir: str, device=None) -> list[dict]:
     return rows
 
 
-def plot(rows: list[dict], out: str, reference: list[dict] | None = None) -> None:
-    """The four curves of ``rows`` (and, dashed, of ``reference``)."""
+def plot(rows: list[dict], out: str, reference: list[dict] | None = None,
+         others: dict[str, list[dict]] | None = None, label: str = "port") -> None:
+    """The four curves of ``rows`` (and, dashed, of ``reference``; dotted,
+    of each labelled run in ``others``)."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -308,12 +312,14 @@ def plot(rows: list[dict], out: str, reference: list[dict] | None = None) -> Non
         pts = [(r["step"], r[key]) for r in rs if r[key] is not None]
         return [p[0] for p in pts], [p[1] for p in pts]
 
+    runs = [(rows, "-", label), (reference, "--", "JAX")]
+    runs += [(rs, ":", tag) for tag, rs in (others or {}).items()]
     for ax, (key, title, ylim) in zip(axes, panels):
-        for rs, style, tag in ((rows, "-", "port"), (reference, "--", "JAX")):
+        for rs, style, tag in runs:
             if not rs:
                 continue
             ax.plot(*series(rs, key), style, marker="o", label=f"{tag}")
-            if key == "r_sdp":
+            if key == "r_sdp" and not others:
                 ax.plot(*series(rs, "r_mas"), style, marker="s", label=f"{tag} MAS-extracted")
         ax.legend(fontsize=7)
         ax.set_title(title, fontsize=9)
@@ -449,8 +455,12 @@ def synth(workdir: str, device=None) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="convergence study of the port")
-    p.add_argument("cmd", choices=["gen", "train", "analyze", "synth"])
+    p.add_argument("cmd", choices=["gen", "train", "analyze", "synth", "plot"])
     p.add_argument("--workdir", default="conv_torch")
+    p.add_argument("--runs", help="plot: JSON {label: analysis rows}; the first is solid, "
+                                  "a label starting 'JAX' dashed")
+    p.add_argument("--out", default="convergence_torch.png", help="plot: the image")
+    p.add_argument("--only", default="", help="plot: comma-separated label prefixes to draw")
     p.add_argument("--epochs", type=int, default=250)
     p.add_argument("--device", default=None, help="default: cuda")
     args = p.parse_args(argv)
@@ -460,6 +470,15 @@ def main(argv=None):
         train(args.workdir, args.epochs, device=args.device)
     elif args.cmd == "analyze":
         analyze(args.workdir, device=args.device)
+    elif args.cmd == "plot":
+        with open(args.runs) as f:
+            runs = json.load(f)
+        if args.only:
+            keep = tuple(args.only.split(","))
+            runs = {k: v for k, v in runs.items() if k.startswith(keep)}
+        ref = next((runs.pop(k) for k in list(runs) if k.startswith("JAX")), None)
+        first = next(iter(runs))
+        plot(runs.pop(first), args.out, reference=ref, others=runs, label=first)
     else:
         synth(args.workdir, device=args.device)
 
