@@ -102,6 +102,21 @@ to the CPU):
                the rest of the generator, the decoder, the discriminator);
                every group's card gaps within 1.15 x the CPU's plus the
                card's f32 gap
+ 13. migrate   a reference (Aloento/VITS) checkpoint pair at full CJE width
+               (random weights from the seed): Model_Eval_{N}.pth with the
+               generator's module.-prefixed state_dict under "model_g", and
+               Model_Train_{N}.pth with the flagship D's under "model_d" and
+               an optimizer state, each with entries the converter does not
+               read; python -m vits_torch.utils.convert_reference ...
+               --train-pth ... exits 0; TTSEngine loads eval_{N} strictly,
+               its weights the source's bit for bit, and synthesizes one text
+               a language with the lengths of an engine built from the source
+               state_dict and within phase 7's 1e-2 of the peak, MAS launched
+               0 times; then merge_compatible of G from eval_{N} and D from
+               disc_{N} into the config's train state (every entry used, none
+               skipped), 1 warm-up and 3 timed train steps under the config's
+               bf16 policy on phase 5's batch: finite losses, every parameter
+               moved, mas_fused once a step
 Then no process the phases started (loader workers, nvcc, torchrun, ranks)
 may be left running: any still alive after 10 s is killed and the script
 fails.
@@ -1906,6 +1921,160 @@ def check_convergence_tool(card, root: Path, model=None):
     return dict(launches=launches, step_ms=ms, steps=steps)
 
 
+MIGRATE_STEP = 200000  # phase 13: the step in the reference pair's file names
+MIGRATE_WARMUP, MIGRATE_TIMED = 1, 3  # phase 13: fine-tune steps
+# phase 13: entries of the reference pair that the converter must drop (the
+# reference Avocodo keeps PQMF filter buffers in its state_dict)
+MIGRATE_G_EXTRA = {"unread_buffer": torch.arange(5.0)}
+MIGRATE_D_EXTRA = {"combd.pqmf_list.0.analysis_filter": torch.ones(4, 1, 193),
+                   "sbd.pqmf.analysis_filter": torch.ones(16, 1, 257)}
+
+
+def check_migration(card, config_path, batch, seed, root: Path):
+    """Phase 13: a reference (Aloento/VITS) checkpoint pair at full CJE width
+    through the converter's command line, served and fine-tuned."""
+    from vits_torch.config import load_hparams
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops import mas_cuda
+    from vits_torch.serve.engine import TTSEngine
+    from vits_torch.training.checkpoint import load_eval_params, merge_compatible
+    from vits_torch.training.step import create_train_state, train_step
+    from vits_torch.training.train import build_discriminator
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phases 5 and 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    hps = load_hparams(config_path)
+    torch.manual_seed(seed)
+    src_g = {k: v.detach().clone() for k, v in build_synthesizer(hps).state_dict().items()}
+    src_d = {k: v.detach().clone() for k, v in
+             build_discriminator(hps, False, "cuda").state_dict().items()}
+    opt = torch.optim.AdamW([torch.zeros(3, requires_grad=True)],
+                            lr=hps.train.learning_rate).state_dict()
+    eval_pth = root / f"Model_Eval_{MIGRATE_STEP}.pth"
+    train_pth = root / f"Model_Train_{MIGRATE_STEP}.pth"
+    # the reference's format under DDP: module.-prefixed keys, tensors on the card
+    torch.save({"model_g": {"module." + k: v for k, v in {**src_g, **MIGRATE_G_EXTRA}.items()},
+                "iteration": MIGRATE_STEP, "learning_rate": hps.train.learning_rate}, eval_pth)
+    torch.save({"model_d": {"module." + k: v for k, v in {**src_d, **MIGRATE_D_EXTRA}.items()},
+                "optimizer": opt, "iteration": MIGRATE_STEP}, train_pth)
+    out_dir = root / "migrated"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vits_torch.utils.convert_reference", str(eval_pth),
+         "--out-dir", str(out_dir), "--train-pth", str(train_pth)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    cli_s = time.perf_counter() - t0
+    eval_path = out_dir / f"eval_{MIGRATE_STEP}"
+    disc_path = out_dir / f"disc_{MIGRATE_STEP}"
+    print(f"{card} | migrate: {eval_pth.name} {eval_pth.stat().st_size / 2**20:.1f} MiB + "
+          f"{train_pth.name} {train_pth.stat().st_size / 2**20:.1f} MiB (module.-prefixed, "
+          f"one unread entry in G, two in D) -> python -m vits_torch.utils.convert_reference: "
+          f"exit {proc.returncode} in {cli_s:.2f} s of wall; "
+          + "; ".join(proc.stderr.strip().splitlines()[-2:]))
+    if proc.returncode != 0 or proc.stdout.strip().splitlines()[-1:] != [f"wrote {eval_path}"] \
+            or not disc_path.is_file():
+        raise AssertionError(f"migrate: the converter failed\n{proc.stdout}\n{proc.stderr}")
+
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    eng = TTSEngine(config_path, checkpoint_path=str(eval_path), max_frames=1000)
+    got = eng.model.state_dict()
+    same = list(got) == list(src_g) and all(torch.equal(got[k], v) for k, v in src_g.items())
+    ref = TTSEngine(config_path, max_frames=1000)
+    ref.model.load_state_dict(src_g)
+    worst_rel, lengths_equal, out = 0.0, True, {}
+    for i, (lang, text) in enumerate(SERVE_TEXTS.items()):
+        if lang == "long":
+            continue
+        ms, (_, (_, audio)) = wall_stats(
+            lambda: eng.synthesize(text, speaker_id=i % 5, seed=seed + i), n=3)
+        want = ref.synthesize(text, speaker_id=i % 5, seed=seed + i)[1][1]
+        if len(audio) != len(want) or not np.isfinite(audio).all():
+            lengths_equal = False
+            continue
+        rel = float(np.abs(audio - want).max()) / max(float(np.abs(want).max()), 1e-12)
+        worst_rel = max(worst_rel, rel)
+        out[lang] = dict(ms=ms, audio_s=len(audio) / eng.sampling_rate, rel_err=rel)
+        print(f"{card} | migrate serve {lang}: {len(audio) / eng.sampling_rate:.3f} s of "
+              f"audio, median {ms[0]:.2f} ms (n=3; host clock); against the source state "
+              f"dict's engine: max|err| {rel:.3e} of its peak")
+    serve_launches = dict(mas_cuda.launches)
+    print(f"{card} | migrate serve eval_{MIGRATE_STEP}: strict load, state_dict equal to the "
+          f"source generator bit for bit: {same}; lengths equal: {lengths_equal}, worst "
+          f"{worst_rel:.3e} of the peak (tolerance {BATCH_VS_SOLO_REL}); MAS launches "
+          f"{serve_launches}")
+    if not same or not lengths_equal or worst_rel > BATCH_VS_SOLO_REL \
+            or any(serve_launches.values()):
+        raise AssertionError("migrate: the engine does not serve the migrated generator")
+    del eng, ref, got, src_g, src_d
+    torch.cuda.empty_cache()
+
+    bf16 = bool(hps.train.bf16_run)
+    model = build_synthesizer(hps, bf16=bf16)
+    disc = build_discriminator(hps, bf16, "cuda")
+    merged = {}
+    for side, m, loaded in (
+        ("G", model, load_eval_params(str(eval_path), "cuda")),
+        ("D", disc, torch.load(disc_path, map_location="cuda", weights_only=True)["d_params"]),
+    ):
+        sd, used, skipped = merge_compatible(m.state_dict(), loaded)
+        merged[side] = (used, skipped)
+        if used != len(loaded) or skipped:
+            raise AssertionError(f"migrate: merge_compatible of {side} used {used} of "
+                                 f"{len(loaded)}, skipped {skipped}")
+        m.load_state_dict(sd)
+    del sd, loaded
+    torch.cuda.empty_cache()
+    state = create_train_state(model, disc, hps, steps_per_epoch=100)
+    start = [p.detach().clone() for m in (model, disc) for p in m.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = batch
+    tb = dict(x=b["x"], t=b["t"], x_lengths=b["x_lengths"], spec=b["y"],
+              spec_lengths=b["y_lengths"], ying=b["ying"], wav=b["wav"], sid=b["sid"])
+    n = MIGRATE_WARMUP + MIGRATE_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    times, metrics = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        m = train_step(state, tb, hps, generator=gen)
+        torch.cuda.synchronize()
+        if i >= MIGRATE_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: v.item() for k, v in m.items()})
+    tune_launches = dict(mas_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    moved = [not torch.equal(a, p.detach())
+             for a, p in zip(start, (p for m in (model, disc) for p in m.parameters()))]
+    ms = (float(np.median(times)), min(times), max(times))
+    print(f"{card} | migrate fine-tune: merge_compatible G used {merged['G'][0]} skipped "
+          f"{merged['G'][1]}, D used {merged['D'][0]} skipped {merged['D'][1]}; bf16 "
+          f"{bf16}, B={MAIN_B} T_y={MAIN_T_Y} segment {hps.train.segment_size}: median "
+          f"{ms[0]:.2f} ms (min {ms[1]:.2f}, max {ms[2]:.2f}, n={MIGRATE_TIMED} after "
+          f"{MIGRATE_WARMUP} warm-up; host clock, synchronized) "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms; peak memory {peak / 2**30:.2f} GiB; {sum(moved)} of {len(moved)} "
+          f"parameter tensors moved; launches in {n} steps {tune_launches}")
+    for tag, m in (("first", metrics[0]), ("last", metrics[-1])):
+        print(f"{card} | migrate fine-tune {tag} step: "
+              + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    if tune_launches != {"mas_fused": n, "mas_forward": 0, "mas_backtrack": 0}:
+        raise AssertionError("migrate fine-tune: mas_fused must launch once a step")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("migrate fine-tune: a loss is not finite")
+    if not all(moved):
+        raise AssertionError(f"migrate fine-tune: {len(moved) - sum(moved)} tensors never moved")
+    del state, model, disc, start
+    torch.cuda.empty_cache()
+    return dict(cli_s=cli_s, serve=out, step_ms=ms, peak_bytes=peak,
+                launches={name: {"serve": serve_launches[name], "fine_tune": tune_launches[name]}
+                          for name in serve_launches})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1960,6 +2129,9 @@ def main() -> int:
                       args.seed)
         conv = check_convergence_tool(card, Path(tmp))
     check_bf16_card_against_cpu(card, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        migration = check_migration(card, str(ROOT / "configs" / "config_cje.yaml"), batch,
+                                    args.seed, Path(tmp))
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")
@@ -1996,6 +2168,8 @@ def main() -> int:
             "launches_in_tp": [r[name] for r in tp["launches"]],
             # phase 11: the convergence tool's train (one a step, one a validation batch)
             "launches_in_convergence": conv["launches"][name],
+            # phase 13: the migrated generator served, then 4 fine-tune steps
+            "launches_in_migration": migration["launches"][name],
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
     print(json.dumps({"kernels": kernels}))
