@@ -10,13 +10,18 @@ weights from a seed, and checks the card against the CPU.
 Phases (any failure ends the script with a non-zero exit; nothing falls back
 to the CPU):
   1. build     nvcc for sm_90a, one process per source, all started together
-  2. kernels   the fused MAS kernel (the main path's) and the first port's
-               forward + backtrack pair against the plain version, exact, at
-               the test shapes, the edge cases (t_y < t_x, t_x = 1,
-               zero-length items, t_y == t_x with partial lengths), the
-               main-path shape and the largest bucket (64, 1500, 384); the
-               fused kernel and the pair timed in turns (pair, fused, fused,
-               pair) with their bounds
+  2. kernels   the fused MAS kernel (the main path's), the wide one and the
+               first port's forward + backtrack pair against the plain
+               version, exact, at the test shapes, the edge cases (t_y < t_x,
+               t_x = 1, zero-length items, t_y == t_x with partial lengths),
+               the main-path shape and the largest bucket (64, 1500, 384);
+               the fused kernel and the pair timed in turns (pair, fused,
+               fused, pair) with their bounds; then the shapes mas_fused
+               cannot take, (16, 1500, 512), (16, 2000, 1024), (8, 2000,
+               384), (4, 3000, 2052) and (2, 13000, 64): maximum_path
+               launches mas_wide once each, exact; at the first two
+               mas_wide and the pair timed in turns (pair, wide, wide, pair)
+               with the bound
   3. forward   SynthesizerTrn.forward, B=16 x T_y=400, text 129-191 ids,
                features made by the port's spectrogram and Yingram from a
                synthetic waveform; it must launch mas_fused once and the
@@ -117,6 +122,13 @@ to the CPU):
                skipped), 1 warm-up and 3 timed train steps under the config's
                bf16 policy on phase 5's batch: finite losses, every parameter
                moved, mas_fused once a step
+14. long text  configs/config_cje.yaml with max_text_len 510 (T_x 1024) at its
+               top bucket (T_y 1500), full width and depth, the config's
+               bf16 policy, flagship D: B=16 of 1000-1500 frames and 400-1024
+               symbols, 1 warm-up and 3 timed train steps; mas_wide once a
+               step and mas_fused never, every step's path equal to
+               maximum_path_torch on its inputs, finite losses, step times
+               and peak memory; mas_wide timed on the last step's inputs
 Then no process the phases started (loader workers, nvcc, torchrun, ranks)
 may be left running: any still alive after 10 s is killed and the script
 fails.
@@ -152,6 +164,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 MAIN_B, MAIN_T_Y, MAIN_T_X = 16, 400, 191
+# shapes that mas_fused cannot take, so maximum_path launches mas_wide: T_x
+# of max_text_len 254 and 510 at the top buckets, the CJE text bound with a
+# 2000-frame bucket, T_x over 2048, T_y past the first port's backtrack limit (12,288)
+WIDE_CASES = [(16, 1500, 512), (16, 2000, 1024), (8, 2000, 384), (4, 3000, 2052),
+              (2, 13000, 64)]
+WIDE_TIMED = [(16, 1500, 512), (16, 2000, 1024)]
 CHECK_CASES = [(4, 37, 11), (2, 64, 48), (8, 150, 130), (3, 40, 40), (32, 800, 384),
                (64, 1500, 384)]
 # (B, T_y, T_x, t_ys, t_xs): t_y < t_x, t_x = 1, zero-length items, square
@@ -247,13 +265,24 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def mas_case(b, t_y, t_x, seed, t_ys=None, t_xs=None):
-    """Random scores with lengths t_y >= t_x (drawn unless given), on the card."""
+def mas_only(**counts) -> dict:
+    """The MAS launch counts a run must show: those named, every other
+    kernel's 0."""
+    from vits_torch.ops import mas_cuda
+
+    return {**dict.fromkeys(mas_cuda.launches, 0), **counts}
+
+
+def mas_case(b, t_y, t_x, seed, t_ys=None, t_xs=None, full_first=False):
+    """Random scores with lengths t_y >= t_x (drawn unless given; item 0 at
+    the full T_y x T_x if full_first), on the card."""
     rng = np.random.default_rng(seed)
     neg = rng.standard_normal((b, t_y, t_x)).astype(np.float32)
     if t_ys is None:
         t_xs = rng.integers(2, t_x + 1, size=b)
         t_ys = np.maximum(rng.integers(t_x, t_y + 1, size=b), t_xs)
+        if full_first:
+            t_ys[0], t_xs[0] = t_y, t_x
     mask = (
         (np.arange(t_y)[None, :, None] < np.asarray(t_ys)[:, None, None])
         & (np.arange(t_x)[None, None, :] < np.asarray(t_xs)[:, None, None])
@@ -271,7 +300,7 @@ def check_mas(card: str, main_lengths) -> dict:
     """Phase 2: every MAS kernel against its plain version, exact; times."""
     from vits_torch.ops import mas, mas_cuda
 
-    err = {"mas_fused": 0.0, "mas_forward": 0.0, "mas_backtrack": 0.0}
+    err = {"mas_fused": 0.0, "mas_forward": 0.0, "mas_backtrack": 0.0, "mas_wide": 0.0}
     # t_y == t_x is the diagonal case: full lengths force the identity path
     cases = [(b, ty, tx, *(([ty] * b, [tx] * b) if ty == tx else (None, None)))
              for b, ty, tx in CHECK_CASES]
@@ -289,15 +318,18 @@ def check_mas(card: str, main_lengths) -> dict:
         e_f = (dec[inside].float() - dec_plain[inside].float()).abs().max().item()
         path = mas_cuda.mas_backtrack(dec_plain, ty, tx)
         e_b = (path - mas.mas_backtrack(dec_plain, ty, tx)).abs().max().item()
+        e_w = (mas_cuda.mas_wide(neg, mask) - ref).abs().max().item()
         torch.cuda.synchronize()
         if t_ys is not None and t_y == t_x and t_ys[0] == t_y and t_xs[0] == t_x \
                 and not torch.equal(full[0].cpu(), torch.eye(t_y)):
             raise AssertionError("MAS: t_y == t_x must give the identity path")
         print(f"{card} | mas check B={b} T_y={t_y} T_x={t_x}: fused max|err|={e_u} "
-              f"maximum_path max|err|={e_p} forward max|err|={e_f} backtrack max|err|={e_b}")
-        if e_u or e_p or e_f or e_b:
+              f"maximum_path max|err|={e_p} forward max|err|={e_f} backtrack max|err|={e_b} "
+              f"wide max|err|={e_w}")
+        if e_u or e_p or e_f or e_b or e_w:
             raise AssertionError("MAS kernel disagrees with the plain version")
-        for k, e in (("mas_fused", max(e_u, e_p)), ("mas_forward", e_f), ("mas_backtrack", e_b)):
+        for k, e in (("mas_fused", max(e_u, e_p)), ("mas_forward", e_f), ("mas_backtrack", e_b),
+                     ("mas_wide", e_w)):
             err[k] = max(err[k], e)
 
     rows = {}
@@ -345,28 +377,83 @@ def check_mas(card: str, main_lengths) -> dict:
                            bt=(bt_ms, bt_plain, bt_bound))
     print(f"{card} | mas note: the fused kernel's time is its serial chain of t_y DP row "
           f"steps and t_y walk steps on one warp an item, not bytes")
-    return {"err": err, "main": rows["main"]}
+
+    # the shapes mas_fused refuses: maximum_path launches mas_wide, once
+    for i, (b, t_y, t_x) in enumerate(WIDE_CASES):
+        neg, mask, _, _ = mas_case(b, t_y, t_x, 200 + i, full_first=True)
+        before = dict(mas_cuda.launches)
+        full = mas.maximum_path(neg, mask)
+        torch.cuda.synchronize()
+        launched = {k: mas_cuda.launches[k] - before[k] for k in before}
+        ref = mas.maximum_path_torch(neg, mask)
+        e_p = (full - ref).abs().max().item()
+        print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: route "
+              f"{mas_cuda.route(t_y, t_x)}, maximum_path launched {launched}, max|err|={e_p}")
+        if launched != mas_only(mas_wide=1):
+            raise AssertionError(f"mas wide: maximum_path must launch mas_wide once, {launched}")
+        if e_p:
+            raise AssertionError("mas_wide disagrees with the plain version")
+        err["mas_wide"] = max(err["mas_wide"], e_p)
+    wide = {}
+    for b, t_y, t_x in WIDE_TIMED:
+        neg, mask, ty, tx = mas_case(b, t_y, t_x, 7, full_first=True)
+
+        def pair():
+            return mas_cuda.mas_backtrack(mas_cuda.mas_forward(neg, ty, tx), ty, tx)
+
+        def wide_kernel():
+            return mas_cuda.mas_wide(neg, mask)
+
+        # the first port's pair takes these shapes too (T_x <= 4096, T_y <= 12,288)
+        turns = [cuda_ms(pair, iters=10), cuda_ms(wide_kernel, iters=10),
+                 cuda_ms(wide_kernel, iters=10), cuda_ms(pair, iters=10)]
+        w_ms, pair_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1)
+        b_ms, b_by = wide_bound(ty, tx, t_y, t_x)
+        wide[(b, t_y, t_x)] = (w_ms, plain_ms, (b_ms, b_by))
+        print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: in turns pair {turns[0]:.4f}, "
+              f"wide {turns[1]:.4f}, wide {turns[2]:.4f}, pair {turns[3]:.4f} ms; mas_wide "
+              f"{w_ms:.4f} ms against pair {pair_ms:.4f} ms ({pair_ms / w_ms:.2f}x), plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({w_ms / b_ms:.1f}x the bound)")
+    return {"err": err, "main": rows["main"], "wide": wide}
 
 
-def synthetic_batch(hps, rng, dev):
-    """B=16 utterances of 300-400 frames with 129-191 symbols, their
-    waveforms [B, 400 * hop, 1] and the linear spectrograms and yingrams the
-    port computes from them on the card."""
+def wide_bound(ty, tx, t_y, t_x):
+    """mas_wide's bound (ms, by) at lengths ty, tx of a [B, T_y, T_x] batch:
+    read the scores inside the rectangles and the mask's first column and
+    row, write the whole f32 path and one decision bit a cell inside the
+    rectangles, read back two decision words a row; an add, a max and a
+    compare a cell."""
+    b = ty.numel()
+    cells = float((ty.double() * tx.double()).sum())
+    rows = float(ty.double().sum())
+    return bound_ms(4 * cells + 4.0 * b * (t_y + t_x) + 4.0 * b * t_y * t_x + cells / 8
+                    + 8 * rows, 3 * cells)
+
+
+def synthetic_batch(hps, rng, dev, b=MAIN_B, t_y=MAIN_T_Y, t_x=MAIN_T_X, y_low=300,
+                    x_low=129):
+    """B utterances of y_low..T_y frames with x_low..T_x symbols, never more
+    symbols than frames (B=16, 300-400 frames, 129-191 symbols unless
+    given), item 0 at the full T_y x T_x; their waveforms [B, T_y * hop, 1]
+    and the linear spectrograms and yingrams the port computes from them on
+    the card."""
     from vits_torch.ops.stft import spectrogram
     from vits_torch.ops.yin import Yingram
     from vits_torch.text.symbols import symbols
 
     d = hps.data
     hop = d.hop_length
-    y_lengths = rng.integers(300, MAIN_T_Y + 1, size=MAIN_B)
-    y_lengths[0] = MAIN_T_Y
-    x_lengths = rng.integers(129, MAIN_T_X + 1, size=MAIN_B)
-    x_lengths[0] = MAIN_T_X
-    n = np.arange(MAIN_T_Y * hop)
-    f0 = rng.uniform(90, 300, size=(MAIN_B, 1))
+    y_lengths = rng.integers(y_low, t_y + 1, size=b)
+    y_lengths[0] = t_y
+    x_lengths = rng.integers(x_low, t_x + 1, size=b)
+    x_lengths[0] = t_x
+    x_lengths = np.minimum(x_lengths, y_lengths)
+    n = np.arange(t_y * hop)
+    f0 = rng.uniform(90, 300, size=(b, 1))
     wav = (0.4 * np.sin(2 * np.pi * f0 * n / d.sampling_rate)
            + 0.2 * np.sin(4 * np.pi * f0 * n / d.sampling_rate)
-           + 0.02 * rng.standard_normal((MAIN_B, n.size)))
+           + 0.02 * rng.standard_normal((b, n.size)))
     wav *= n[None, :] < (y_lengths[:, None] * hop)
     wav = torch.from_numpy(wav.astype(np.float32)).to(dev)
     spec = spectrogram(wav, d.filter_length, hop, d.win_length)
@@ -375,13 +462,11 @@ def synthetic_batch(hps, rng, dev):
     yingram = Yingram(d.sampling_rate, hop, d.ying_window, d.tau_max, d.midi_start,
                       d.midi_end, d.octave_range)
     ying = yingram(torch.nn.functional.pad(wav, (left, right)))
-    if spec.shape != (MAIN_B, MAIN_T_Y, d.filter_length // 2 + 1) or ying.shape != (
-        MAIN_B, MAIN_T_Y, d.midis
-    ):
+    if spec.shape != (b, t_y, d.filter_length // 2 + 1) or ying.shape != (b, t_y, d.midis):
         raise AssertionError(f"features: spec {tuple(spec.shape)}, yingram {tuple(ying.shape)}")
-    x = torch.from_numpy(rng.integers(1, len(symbols), (MAIN_B, MAIN_T_X))).to(dev)
-    t = torch.from_numpy(rng.integers(0, 6, (MAIN_B, MAIN_T_X))).to(dev)
-    sid = torch.from_numpy(rng.integers(0, len(d.speakers), MAIN_B)).to(dev)
+    x = torch.from_numpy(rng.integers(1, len(symbols), (b, t_x))).to(dev)
+    t = torch.from_numpy(rng.integers(0, 6, (b, t_x))).to(dev)
+    sid = torch.from_numpy(rng.integers(0, len(d.speakers), b)).to(dev)
     return dict(
         x=x, t=t, x_lengths=torch.from_numpy(x_lengths).to(dev), y=spec,
         y_lengths=torch.from_numpy(y_lengths).to(dev), ying=ying, sid=sid, wav=wav[:, :, None],
@@ -407,7 +492,7 @@ def check_forward(card, model, batch, gen, hps):
         launches = dict(mas_cuda.launches)
         ms = host_ms(run)
     print(f"{card} | forward launches on the main path: {launches}")
-    if launches != {"mas_fused": 1, "mas_forward": 0, "mas_backtrack": 0}:
+    if launches != mas_only(mas_fused=1):
         raise AssertionError("the training forward must launch mas_fused once and the pair never")
     seg = hps.train.segment_size
     inter, two_b = hps.model.inter_channels, 2 * MAIN_B
@@ -575,7 +660,7 @@ def check_train(card, hps, batch, seed, bf16):
         print(f"{card} | train step {label} {tag} step: "
               + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
     print(f"{card} | train step {label}: {sum(moved)} of {len(moved)} parameter tensors moved")
-    if launches != {"mas_fused": n, "mas_forward": 0, "mas_backtrack": 0}:
+    if launches != mas_only(mas_fused=n):
         raise AssertionError(f"train step {label}: mas_fused must launch once a step")
     if not all(np.isfinite(v) for m in (first, last) for v in m.values()):
         raise AssertionError(f"train step {label}: a loss is not finite")
@@ -583,8 +668,7 @@ def check_train(card, hps, batch, seed, bf16):
         raise AssertionError(f"train step {label}: {len(moved) - sum(moved)} tensors never moved")
     del state, model, disc, start
     torch.cuda.empty_cache()
-    return {"ms": ms, "launches": launches, "launches_per_step": launches["mas_fused"] / n,
-            "peak_bytes": peak}
+    return {"ms": ms, "launches": launches, "peak_bytes": peak}
 
 
 # the tiny configuration of tests/test_train_step.py
@@ -1277,8 +1361,7 @@ def check_train_run(card, config_path, seed, root: Path):
         launches = dict(mas_cuda.launches)
         peak = torch.cuda.max_memory_allocated()
         steps = rep.state.step - rep.start_step
-        want = {"mas_fused": steps + len(rep.evals) * val_batches, "mas_forward": 0,
-                "mas_backtrack": 0}
+        want = mas_only(mas_fused=steps + len(rep.evals) * val_batches)
         print(f"{card} | train run {label}: steps {rep.start_step + 1}-{rep.state.step} "
               f"(epochs {rep.start_epoch}-{epochs - 1}, B={t.batch_size}, bf16 "
               f"{t.bf16_run}, segment {t.segment_size}) in {wall:.2f} s of wall; StepTimer "
@@ -1441,7 +1524,7 @@ def check_ddp_cli(card, root: Path, run: dict):
         print(f"{card} | ddp cli step {s}: g {losses[s][0]:.4f} d {losses[s][1]:.4f}; phase 8 "
               f"g {ref[s][0]:.4f} d {ref[s][1]:.4f}; relative difference g {errs[s][0]:.3e} "
               f"d {errs[s][1]:.3e} (tolerance rtol {DDP_CLI_RTOL})")
-    if launches != {"mas_fused": want, "mas_forward": 0, "mas_backtrack": 0}:
+    if launches != mas_only(mas_fused=want):
         raise AssertionError(f"ddp cli: MAS launches {launches}, want mas_fused {want}")
     if any(e > DDP_CLI_RTOL for pair in errs.values() for e in pair):
         raise AssertionError("ddp cli: losses differ from phase 8's")
@@ -1628,7 +1711,7 @@ def check_ddp_two_ranks(card, root: Path, seed):
           f"equal; MAS launches per rank {launches}")
     if bad:
         raise AssertionError(f"ddp two ranks: {bad[:10]}")
-    if any(ln != {"mas_fused": 1, "mas_forward": 0, "mas_backtrack": 0} for ln in launches):
+    if any(ln != mas_only(mas_fused=1) for ln in launches):
         raise AssertionError(f"ddp two ranks: MAS launches {launches}, want mas_fused 1 a rank")
     return dict(wall_s=wall, launches=launches, worst=worst)
 
@@ -1846,7 +1929,7 @@ def check_tp(card, config_path, batch, root: Path, seed):
           f"{one_peak / 2**30:.2f} GiB (host clock, synchronized; first step of each process)")
     if bad:
         raise AssertionError(f"tp: {bad[:10]}")
-    if any(ln != {"mas_fused": 1, "mas_forward": 0, "mas_backtrack": 0} for ln in launches):
+    if any(ln != mas_only(mas_fused=1) for ln in launches):
         raise AssertionError(f"tp: MAS launches {launches}, want mas_fused 1 a rank")
     return dict(launches=launches, worst=worst, wall_s=[r["wall_s"] for r in ranks],
                 peak_bytes=[r["peak_bytes"] for r in ranks], dryrun_s=dry_s)
@@ -1915,7 +1998,7 @@ def check_convergence_tool(card, root: Path, model=None):
         raise AssertionError(f"convergence tool: analyze {rows}")
     if summary["n"] != 8 or not np.isfinite(summary["mean_sim"]):
         raise AssertionError(f"convergence tool: synth {summary}")
-    if launches != {"mas_fused": steps + val_batches, "mas_forward": 0, "mas_backtrack": 0}:
+    if launches != mas_only(mas_fused=steps + val_batches):
         raise AssertionError(f"convergence tool: MAS launches {launches}, want one a train "
                              f"step and one a validation batch ({steps} + {val_batches})")
     return dict(launches=launches, step_ms=ms, steps=steps)
@@ -2062,7 +2145,7 @@ def check_migration(card, config_path, batch, seed, root: Path):
     for tag, m in (("first", metrics[0]), ("last", metrics[-1])):
         print(f"{card} | migrate fine-tune {tag} step: "
               + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
-    if tune_launches != {"mas_fused": n, "mas_forward": 0, "mas_backtrack": 0}:
+    if tune_launches != mas_only(mas_fused=n):
         raise AssertionError("migrate fine-tune: mas_fused must launch once a step")
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError("migrate fine-tune: a loss is not finite")
@@ -2073,6 +2156,107 @@ def check_migration(card, config_path, batch, seed, root: Path):
     return dict(cli_s=cli_s, serve=out, step_ms=ms, peak_bytes=peak,
                 launches={name: {"serve": serve_launches[name], "fine_tune": tune_launches[name]}
                           for name in serve_launches})
+
+
+LONG_B, LONG_MAX_TEXT_LEN = 16, 510  # phase 14: T_x = 2 * 510 + 4 = 1024
+LONG_WARMUP, LONG_TIMED = 1, 3
+
+
+def check_long_text(card, config_path, seed):
+    """Phase 14: long texts at full CJE width. configs/config_cje.yaml with
+    max_text_len 510 (the train CLI's text bound, 1024 columns) at its top
+    bucket (1500 frames): bf16 train steps whose MAS shape mas_fused cannot
+    take, so each launches mas_wide; the path each step used against the
+    plain version on the same inputs."""
+    from vits_torch.config import load_hparams
+    from vits_torch.models import synthesizer
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops import mas, mas_cuda
+    from vits_torch.training.step import create_train_state, train_step
+    from vits_torch.training.train import build_discriminator
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as phases 5 and 13
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    hps = load_hparams(config_path)
+    hps.data.max_text_len = LONG_MAX_TEXT_LEN
+    t_x = 2 * hps.data.max_text_len + 4  # training/train.py's text bound
+    t_y = max(hps.data.bucket_boundaries)
+    if mas_cuda.route(t_y, t_x) != "wide":
+        raise AssertionError(f"long text: ({t_y}, {t_x}) is no shape for mas_wide")
+    batch = synthetic_batch(hps, np.random.default_rng(seed + 14), torch.device("cuda"),
+                            b=LONG_B, t_y=t_y, t_x=t_x, y_low=1000, x_low=400)
+    bf16 = bool(hps.train.bf16_run)
+    torch.manual_seed(seed)
+    model = build_synthesizer(hps, bf16=bf16)
+    disc = build_discriminator(hps, bf16, "cuda")
+    state = create_train_state(model, disc, hps, steps_per_epoch=100)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = batch
+    tb = dict(x=b["x"], t=b["t"], x_lengths=b["x_lengths"], spec=b["y"],
+              spec_lengths=b["y_lengths"], ying=b["ying"], wav=b["wav"], sid=b["sid"])
+    calls = []  # (neg_cent, mask, path) of every maximum_path call of the steps
+    inner = synthesizer.maximum_path
+
+    def recording(neg_cent, mask):
+        path = inner(neg_cent, mask)
+        calls.append((neg_cent.clone(), mask.clone(), path.clone()))
+        return path
+
+    n = LONG_WARMUP + LONG_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in mas_cuda.launches:
+        mas_cuda.launches[k] = 0
+    times, metrics = [], []
+    synthesizer.maximum_path = recording
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            m = train_step(state, tb, hps, generator=gen)
+            torch.cuda.synchronize()
+            if i >= LONG_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+    finally:
+        synthesizer.maximum_path = inner
+    launches = dict(mas_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    recorded = sum(t.numel() * t.element_size() for c in calls for t in c)
+    ms = (float(np.median(times)), min(times), max(times))
+    print(f"{card} | long text: config_cje with max_text_len {hps.data.max_text_len}, B={LONG_B} "
+          f"T_y={t_y} T_x={t_x} (frames {int(b['y_lengths'].min())}-{t_y}, symbols "
+          f"{int(b['x_lengths'].min())}-{t_x}), bf16 {bf16}, segment {hps.train.segment_size}, "
+          f"flagship D: median {ms[0]:.2f} ms (min {ms[1]:.2f}, max {ms[2]:.2f}, n={LONG_TIMED} "
+          f"after {LONG_WARMUP} warm-up; host clock, synchronized) "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms; peak memory {peak / 2**30:.2f} GiB ({recorded / 2**30:.2f} GiB of it the "
+          f"recorded MAS inputs and paths); launches in {n} steps {launches}")
+    for tag, m in (("first", metrics[0]), ("last", metrics[-1])):
+        print(f"{card} | long text {tag} step: " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    err = 0.0
+    for i, (neg, mask, path) in enumerate(calls):
+        if tuple(neg.shape) != (LONG_B, t_y, t_x):
+            raise AssertionError(f"long text: MAS call {i} at {tuple(neg.shape)}")
+        err = max(err, (path - mas.maximum_path_torch(neg, mask)).abs().max().item())
+    print(f"{card} | long text: {len(calls)} maximum_path calls at ({LONG_B}, {t_y}, {t_x}) "
+          f"against maximum_path_torch on the same inputs: max|err| {err}")
+    if launches != mas_only(mas_wide=n):
+        raise AssertionError(f"long text: mas_wide must launch once a step, {launches}")
+    if len(calls) != n or err:
+        raise AssertionError("long text: the step's path is not the plain version's")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("long text: a loss is not finite")
+    neg, mask, _ = calls[-1]
+    del state, model, disc, calls, batch, tb, b, m
+    torch.cuda.empty_cache()
+    kernel = (cuda_ms(lambda: mas_cuda.mas_wide(neg, mask), iters=10),
+              cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1),
+              wide_bound(mask[:, :, 0].sum(1), mask[:, 0, :].sum(1), t_y, t_x))
+    print(f"{card} | long text: mas_wide on the last step's inputs {kernel[0]:.4f} ms, plain "
+          f"{kernel[1]:.3f} ms, bound {kernel[2][0]:.5f} ms by {kernel[2][1]}")
+    return dict(step_ms=ms, peak_bytes=peak, launches=launches, err=err, kernel=kernel,
+                shape=(LONG_B, t_y, t_x))
 
 
 def main() -> int:
@@ -2132,27 +2316,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         migration = check_migration(card, str(ROOT / "configs" / "config_cje.yaml"), batch,
                                     args.seed, Path(tmp))
+    del batch
+    torch.cuda.empty_cache()
+    long_text = check_long_text(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")
     if left:
         raise AssertionError(f"the phases left {len(left)} process(es) running (now killed)")
 
-    kernels = []
-    # mas_fused replaces both Pallas kernels; the pair is off the main path
-    for name, line, key in (("mas_fused", 36, "fused"), ("mas_forward", 36, "fw"),
-                            ("mas_backtrack", 57, "bt")):
-        ms, plain_ms, (b_ms, b_by) = mas_rows["main"][key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": "vits_torch/csrc/mas.cu",
-            "replaces": f"vits_tpu/ops/mas_pallas.py:{line}",
-            # the main path: the train steps under the config's bf16 policy
-            "launches": train[True]["launches"][name],
-            "max_abs_err": mas_rows["err"][name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    def on_paths(name):
+        return {
             "launches_per_train_step": {
-                "bf16": train[True]["launches_per_step"] if name == "mas_fused" else 0,
-                "f32": train[False]["launches_per_step"] if name == "mas_fused" else 0,
+                "bf16": train[True]["launches"][name] / (TRAIN_WARMUP + TRAIN_TIMED),
+                "f32": train[False]["launches"][name] / (TRAIN_WARMUP + TRAIN_TIMED),
             },
             "launches_per_forward": forward_launches[name],
             "launches_in_serve": serve["mas_launches"][name],
@@ -2170,8 +2347,39 @@ def main() -> int:
             "launches_in_convergence": conv["launches"][name],
             # phase 13: the migrated generator served, then 4 fine-tune steps
             "launches_in_migration": migration["launches"][name],
+            # phase 14: 1 + 3 long-text train steps, T_x 1024 x T_y 1500
+            "launches_in_long_text": long_text["launches"][name],
+        }
+
+    kernels = []
+    # mas_fused replaces both Pallas kernels; the pair is off the main path
+    for name, line, key in (("mas_fused", 36, "fused"), ("mas_forward", 36, "fw"),
+                            ("mas_backtrack", 57, "bt")):
+        ms, plain_ms, (b_ms, b_by) = mas_rows["main"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "vits_torch/csrc/mas.cu",
+            "replaces": f"vits_tpu/ops/mas_pallas.py:{line}",
+            # the main path: the train steps under the config's bf16 policy
+            "launches": train[True]["launches"][name],
+            "max_abs_err": mas_rows["err"][name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **on_paths(name),
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
+    # mas_wide replaces both as well, at the shapes mas_fused cannot take; its
+    # path is phase 14's, and its times are on that path's last MAS inputs
+    ms, plain_ms, (b_ms, b_by) = long_text["kernel"]
+    kernels.append({
+        "name": "mas_wide", "route": "cuda", "source": "vits_torch/csrc/mas.cu",
+        "replaces": "vits_tpu/ops/mas_pallas.py:36",
+        "also_replaces": "vits_tpu/ops/mas_pallas.py:57",
+        "launches": long_text["launches"]["mas_wide"],
+        "max_abs_err": max(mas_rows["err"]["mas_wide"], long_text["err"]), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": list(long_text["shape"]),
+        "at": {"x".join(map(str, shape)): {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0]}
+               for shape, t in mas_rows["wide"].items()},
+        **on_paths("mas_wide"),
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,14 @@
 // Replaces the two Pallas TPU kernels of vits_tpu/ops/mas_pallas.py,
 // _forward_kernel (mas_pallas.py:36), the forward DP over frames that emits
 // one decision row per frame, and _backtrack_kernel (mas_pallas.py:57), the
-// reverse walk from (t_y-1, t_x-1) that writes the path. Two designs:
+// reverse walk from (t_y-1, t_x-1) that writes the path. Three designs:
 //   mas_fused_kernel     both in one launch, warp-resident DP, decisions
 //                        bit-packed in shared memory; the main path's kernel
 //                        (its own note is at its definition below)
+//   mas_wide_kernel      the same in one launch at the shapes mas_fused
+//                        cannot take (T_x > 1024, or decisions beyond shared
+//                        memory): up to 8 warps a row, decisions bit-packed
+//                        in device memory (its note is at its definition)
 //   mas_forward_kernel + mas_backtrack_kernel
 //                        the first port, one kernel per Pallas kernel, with
 //                        the decisions in device memory between them; kept
@@ -324,6 +328,64 @@ __device__ __forceinline__ void load_chunk(const float* negb, int c, int R,
       : "memory");
 }
 
+// One row of the DP on one warp: lane l holds K consecutive columns, v the
+// previous row's values there on entry and this row's on return, n this
+// row's scores; left0 is the previous row's value left of lane 0's first
+// column. Returns the row's decisions, bit k for the lane's column k: set
+// exactly where value[y-1, x] < value[y-1, x-1].
+template <int K>
+__device__ __forceinline__ unsigned dp_row(float (&v)[K], const float (&n)[K],
+                                           float left0, int lane) {
+  float left = __shfl_up_sync(kFull, v[K - 1], 1);
+  if (lane == 0) left = left0;
+  float diff[K];
+  // last column first: it is what the next row's shuffle sends
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k) {
+    const float s = k > 0 ? v[k > 0 ? k - 1 : 0] : left;
+    diff[k] = v[k] - s;  // sign bit set exactly when v[k] < s
+    v[k] = n[k] + fmaxf(v[k], s);
+  }
+  unsigned f = 0;  // bit k: column k's decision
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k)
+    f = __funnelshift_l(__float_as_uint(diff[k]), f, 1);
+  return f;
+}
+
+// Zero-fills cells floats from p, thread t of nt, 16-byte stores where
+// aligned.
+__device__ __forceinline__ void zero_fill(float* p, size_t cells, int t, int nt) {
+  const size_t lead = ((16 - ((uintptr_t)p & 15)) & 15) / 4;
+  const size_t head = lead < cells ? lead : cells;
+  for (size_t i = t; i < head; i += nt) p[i] = 0.0f;
+  float4* body = reinterpret_cast<float4*>(p + head);
+  const size_t n4 = (cells - head) / 4;
+  for (size_t i = t; i < n4; i += nt) body[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (size_t i = head + 4 * n4 + t; i < cells; i += nt) p[i] = 0.0f;
+}
+
+// One round of the walk over rows y0 .. y0-31. Lane r holds row yy = y0-r's
+// window of decisions, bit c for column lo + c; rel is the column at row y0,
+// relative to lo. Folds the walk's other conditions into the window (step
+// where the column equals the row, never step below column 0), steps through
+// the 32 windows it gets by shuffle (shift, and, subtract a row) and returns
+// this lane's row's column, relative to lo; rel leaves as row y0-32's.
+__device__ __forceinline__ int walk_round(unsigned win, int yy, int lo, int& rel,
+                                          int lane) {
+  const int diag = yy - lo;  // step where the column equals the row
+  if (diag >= 0 && diag < 32) win |= 1u << diag;
+  if (lo == 0) win &= ~1u;  // never step below column 0
+  int mine = 0;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const unsigned bits = __shfl_sync(kFull, win, r);
+    if (lane == r) mine = rel;
+    rel -= (bits >> rel) & 1u;
+  }
+  return mine;
+}
+
 // first score of chunk c inside its stage
 __device__ __forceinline__ const float* chunk_rows(const float* negb, int c,
                                                    int R, int T_x,
@@ -420,20 +482,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           float next[K];
 #pragma unroll
           for (int k = 0; k < K; ++k) next[k] = rowp[k];
-          float left = __shfl_up_sync(kFull, v[K - 1], 1);
-          if (lane == 0) left = kBigNeg;
-          float diff[K];
-          // last column first: it is what the next row's shuffle sends
-#pragma unroll
-          for (int k = K - 1; k >= 0; --k) {
-            const float s = k > 0 ? v[k > 0 ? k - 1 : 0] : left;
-            diff[k] = v[k] - s;  // sign bit set exactly when v[k] < s
-            v[k] = n[k] + fmaxf(v[k], s);
-          }
-          unsigned f = 0;  // bit k: column x0 + k's decision
-#pragma unroll
-          for (int k = K - 1; k >= 0; --k)
-            f = __funnelshift_l(__float_as_uint(diff[k]), f, 1);
+          const unsigned f = dp_row<K>(v, n, kBigNeg, lane);
           fields[(size_t)y * 32 + lane] = (Field<K>)f;
 #pragma unroll
           for (int k = 0; k < K; ++k) n[k] = next[k];
@@ -454,15 +503,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
     for (int c = consumed; c < issued; ++c)
       mbar_wait(bars + c % kStages, (c / kStages) & 1);
   } else {
-    // ---- zero-fill the item's path, 16-byte stores where aligned ----
-    const int t = tid - 32, nt = kFusedThreads - 32;
-    const size_t lead = ((16 - ((uintptr_t)pathb & 15)) & 15) / 4;
-    const size_t head = lead < cells ? lead : cells;
-    for (size_t i = t; i < head; i += nt) pathb[i] = 0.0f;
-    float4* body = reinterpret_cast<float4*>(pathb + head);
-    const size_t n4 = (cells - head) / 4;
-    for (size_t i = t; i < n4; i += nt) body[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (size_t i = head + 4 * n4 + t; i < cells; i += nt) pathb[i] = 0.0f;
+    zero_fill(pathb, cells, tid - 32, kFusedThreads - 32);
   }
   __syncthreads();  // zeros written before the walk's ones
   if (warp != 0 || !walk) return;
@@ -484,16 +525,8 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         win |= at >= 0 ? (at < 32 ? fld << at : 0u) : fld >> -at;
       }
     }
-    const int diag = yy - lo;  // step where the column equals the row
-    if (diag >= 0 && diag < 32) win |= 1u << diag;
-    if (lo == 0) win &= ~1u;  // never step below column 0
-    int rel = idx - lo, mine = 0;
-#pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      const unsigned bits = __shfl_sync(kFull, win, r);
-      if (lane == r) mine = rel;
-      rel -= (bits >> rel) & 1u;
-    }
+    int rel = idx - lo;
+    const int mine = walk_round(win, yy, lo, rel, lane);
     if (yy >= 0) pathb[(size_t)yy * T_x + lo + mine] = 1.0f;
     idx = lo + rel;
   }
@@ -523,6 +556,179 @@ int launch_fused(const float* neg, const float* mask, float* path, int B,
   mas_fused_kernel<K><<<B, kFusedThreads, smem, stream>>>(neg, mask, path, T_y,
                                                           T_x);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// mas_wide_kernel: maximum_path in one launch at any [T_y, T_x].
+//
+// Replaces _forward_kernel (vits_tpu/ops/mas_pallas.py:36) and
+// _backtrack_kernel (mas_pallas.py:57) together, as mas_fused_kernel does,
+// for the shapes that kernel cannot take: T_x > 1024, or more decision rows
+// than a block's 227 KB of shared memory holds (ops/mas_cuda.py::route
+// chooses by shape before the launch). The arithmetic is mas_fused's, so the
+// path is maximum_path_torch's bit for bit. What differs:
+//   * The decisions live in device memory, in a [B, T_y, ceil(T_x / 32)]
+//     uint32 scratch that the wrapper allocates: bit x % 32 of word x / 32 is
+//     column x's decision. A lane holds K = 32 consecutive columns whatever
+//     T_x, so its row of decisions is one word, and a warp's 32 words go out
+//     as one coalesced 128-byte store. At (64, 2000, 1024) the scratch is
+//     16.4 MB, which the 50 MB L2 can keep until the walk reads it back.
+//   * Up to 8 warps share a row, 1024 columns each, each with mas_fused's row
+//     step (dp_row<32>). Lane 0 of warp w needs the previous row's value of
+//     warp w-1's last column: lane 31 of warp w-1 leaves it in shared memory
+//     (two slots, by row parity) and the DP warps meet at a named barrier
+//     (bar.sync 1) once a row. Rows wider than 8 x 1024 columns are cut into
+//     stripes of that width, run one after another over all rows; a stripe's
+//     last column goes, row by row, to a [2, B, T_y] f32 scratch in device
+//     memory that the next stripe's lane 0 reads one row ahead (the two
+//     planes in turns).
+//   * The scores come by plain coalesced loads, one row ahead in registers
+//     (lane l reads columns x0 + 32 c + l), and pass through a padded 32 x 33
+//     tile in shared memory a warp that hands each lane its 32 consecutive
+//     columns without bank conflicts. Shared memory is 34 KB whatever the
+//     shape; only device memory bounds T_y and T_x.
+//   * The walk is mas_fused's (walk_round), 32 rows a round on warp 0 after
+//     a block barrier; lane r reads the two words of row y0-r around the
+//     current column from device memory, through L2 (other warps of this
+//     block wrote them).
+//   * Two more warps zero-fill the item's path while the DP runs.
+// Bound on this card: mas_fused's bytes (the scores inside the rectangles,
+// the mask's first column and row, the whole f32 path) plus a decision bit a
+// cell written and two words a row read back: at B=16, T_y=2000, T_x=1024
+// with full lengths, 0.27 GB, about 80 us at 3.35 TB/s. What sets the time
+// is the chain, as in mas_fused: t_y row steps of 32 columns a lane (a row
+// costs what mas_fused's costs at T_x = 1024, whatever T_x: ~0.7 us on this
+// card, bound by one warp's instruction rate) and a barrier a row, times
+// the stripes, then t_y / 32 walk rounds that each wait on a load from L2.
+// Loading the scores two rows ahead instead of one was 7-21% slower: the
+// loads are not what the row step waits for.
+
+constexpr int kWideK = 32;  // columns a lane: its decisions make one word
+constexpr int kWarpCols = 32 * kWideK;
+constexpr int kWideDpWarps = 8;  // warps on one row at most: a stripe
+constexpr int kWideFillWarps = 2;
+constexpr int kWideThreads = (kWideDpWarps + kWideFillWarps) * 32;
+constexpr int kTileStride = 33;  // padded: row and column reads hit 32 banks
+
+// the row's scores at the warp's columns x0 + 32 c + lane (coalesced); 0
+// past T_x, where no column to the left reads them
+__device__ __forceinline__ void load_wide_row(float (&g)[kWideK],
+                                              const float* __restrict__ row,
+                                              int x0, int T_x, int lane) {
+#pragma unroll
+  for (int c = 0; c < kWideK; ++c) {
+    const int x = x0 + c * 32 + lane;
+    g[c] = x < T_x ? row[x] : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+    mas_wide_kernel(const float* __restrict__ neg,
+                    const float* __restrict__ mask, float* __restrict__ path,
+                    unsigned* dec, float* edge, int T_y, int T_x,
+                    int dp_warps) {
+  __shared__ float tiles[kWideDpWarps][32 * kTileStride];
+  __shared__ float handover[2][kWideDpWarps];  // [row parity][receiving warp]
+  __shared__ int lens[2 * (kWideDpWarps + kWideFillWarps)];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int words = (T_x + 31) / 32;
+  const size_t cells = (size_t)T_y * T_x;
+  const float* negb = neg + blockIdx.x * cells;
+  const float* maskb = mask + blockIdx.x * cells;
+  float* pathb = path + blockIdx.x * cells;
+  unsigned* decb = dec + blockIdx.x * (size_t)T_y * words;
+  const size_t plane = (size_t)gridDim.x * T_y;
+  float* edgeb = edge + blockIdx.x * (size_t)T_y;
+
+  // the lengths: the nonzero entries of mask[b, :, 0] and mask[b, 0, :]
+  int cy = 0, cx = 0;
+  for (int y = tid; y < T_y; y += blockDim.x) cy += maskb[(size_t)y * T_x] != 0.0f;
+  for (int x = tid; x < T_x; x += blockDim.x) cx += maskb[x] != 0.0f;
+  cy = __reduce_add_sync(kFull, cy);
+  cx = __reduce_add_sync(kFull, cx);
+  if (lane == 0) {
+    lens[2 * warp] = cy;
+    lens[2 * warp + 1] = cx;
+  }
+  __syncthreads();
+  int ty = 0, tx = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    ty += lens[2 * w];
+    tx += lens[2 * w + 1];
+  }
+  const bool has_path = ty > 0 && tx > 0;
+
+  if (warp < dp_warps) {
+    // ---- forward DP, stripe by stripe, row by row ----
+    const int stripe_cols = dp_warps * kWarpCols;
+    const int stripes = has_path ? (tx + stripe_cols - 1) / stripe_cols : 0;
+    float* tile = tiles[warp];
+    for (int s = 0; s < stripes; ++s) {
+      const int x0 = s * stripe_cols + warp * kWarpCols;  // the warp's first column
+      const int xl = x0 + lane * kWideK;                  // the lane's first column
+      const float* edge_in = edgeb + ((s + 1) & 1) * plane;  // stripe s-1's last column
+      float* edge_out = edgeb + (s & 1) * plane;
+      const bool reads_edge = warp == 0 && s > 0;
+      const bool hands_over = lane == 31 && warp + 1 < dp_warps;
+      const bool writes_edge = lane == 31 && warp + 1 == dp_warps && s + 1 < stripes;
+      float edge_left = reads_edge && ty > 1 ? __ldcg(edge_in) : kBigNeg;
+      float g[kWideK], v[kWideK];
+      load_wide_row(g, negb, x0, T_x, lane);
+#pragma unroll 1
+      for (int y = 0; y < ty; ++y) {
+        float n[kWideK];
+        __syncwarp();  // the tile's last reads are done
+#pragma unroll
+        for (int c = 0; c < kWideK; ++c) tile[c * kTileStride + lane] = g[c];
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < kWideK; ++k) n[k] = tile[lane * kTileStride + k];
+        if (y + 1 < ty) load_wide_row(g, negb + (size_t)(y + 1) * T_x, x0, T_x, lane);
+        if (y == 0) {  // only (0, 0) is reachable; no decisions
+#pragma unroll
+          for (int k = 0; k < kWideK; ++k) v[k] = n[k] + (xl + k == 0 ? 0.0f : kBigNeg);
+        } else {
+          const float left0 = warp > 0 ? handover[(y - 1) & 1][warp] : edge_left;
+          const unsigned f = dp_row<kWideK>(v, n, left0, lane);
+          const int word = (x0 >> 5) + lane;
+          if (word < words) decb[(size_t)y * words + word] = f;
+          if (reads_edge && y + 1 < ty) edge_left = __ldcg(edge_in + y);
+        }
+        if (hands_over) handover[y & 1][warp + 1] = v[kWideK - 1];
+        if (writes_edge) edge_out[y] = v[kWideK - 1];
+        asm volatile("bar.sync 1, %0;" ::"r"(dp_warps * 32) : "memory");
+      }
+    }
+  } else {
+    zero_fill(pathb, cells, tid - dp_warps * 32, blockDim.x - dp_warps * 32);
+  }
+  __syncthreads();  // decisions and zeros written before the walk
+  if (warp > 0 || !has_path) return;
+
+  // ---- walk from (ty-1, tx-1) down to row 0, 32 rows a round ----
+  int col = tx - 1;
+  for (int y0 = ty - 1; y0 >= 0; y0 -= 32) {
+    const int lo = max(col - 31, 0);  // the round's columns: lo .. lo+31
+    const int yy = y0 - lane;         // this lane's row
+    unsigned win = 0;
+    if (yy >= 1) {
+      const unsigned* row = decb + (size_t)yy * words;
+      const int w0 = lo >> 5, off = lo & 31;
+      const unsigned a = __ldcg(row + w0);
+      const unsigned b = off && w0 + 1 < words ? __ldcg(row + w0 + 1) : 0u;
+      win = off ? (a >> off) | (b << (32 - off)) : a;
+    }
+    int rel = col - lo;
+    const int mine = walk_round(win, yy, lo, rel, lane);
+    if (yy >= 0) pathb[(size_t)yy * T_x + lo + mine] = 1.0f;
+    col = lo + rel;
+  }
+}
+
+// DP warps of mas_wide_kernel at T_x >= 1: ceil(T_x / 1024), at most 8
+int wide_dp_warps(int T_x) {
+  const int w = (T_x + kWarpCols - 1) / kWarpCols;
+  return w < kWideDpWarps ? w : kWideDpWarps;
 }
 
 }  // namespace
@@ -589,6 +795,19 @@ int mas_fused(const float* neg, const float* mask, float* path, int B, int T_y,
     case 32: return launch_fused<32>(neg, mask, path, B, T_y, T_x, s, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// neg, mask: [B, T_y, T_x] f32, the mask the 0/1 rectangle of each item's
+// lengths. path: [B, T_y, T_x] f32, written in full. dec: [B, T_y,
+// ceil(T_x / 32)] uint32 scratch; edge: [2, B, T_y] f32 scratch, read and
+// written only where T_x > 8192. B, T_y, T_x >= 1.
+int mas_wide(const float* neg, const float* mask, float* path, unsigned* dec,
+             float* edge, int B, int T_y, int T_x, cudaStream_t stream) {
+  if (B < 1 || T_y < 1 || T_x < 1) return (int)cudaErrorInvalidValue;
+  const int dp = wide_dp_warps(T_x);
+  mas_wide_kernel<<<B, (dp + kWideFillWarps) * 32, 0, stream>>>(
+      neg, mask, path, dec, edge, T_y, T_x, dp);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

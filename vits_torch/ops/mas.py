@@ -13,11 +13,17 @@ Two implementations with the JAX package's layout ([B, T_y, T_x]):
   * the plain PyTorch version here (``mas_decisions`` + ``mas_backtrack``),
     a row loop that repeats the JAX ``maximum_path_scan`` arithmetic;
   * the CUDA kernels in ``vits_torch/csrc/mas.cu`` (``ops/mas_cuda.py``):
-    ``mas_fused``, one launch for the whole search, and the first port's
-    pair ``mas_forward`` + ``mas_backtrack``, which no path runs.
+    ``mas_fused`` and ``mas_wide``, each one launch for the whole search, and
+    the first port's pair ``mas_forward`` + ``mas_backtrack``, which no path
+    runs.
 
-``maximum_path`` takes the plain version only for a CPU tensor; a CUDA tensor
-launches ``mas_fused`` or raises. There is no fallback between them.
+``maximum_path`` takes the plain version only for a CPU tensor. A CUDA
+tensor launches the kernel that ``mas_cuda.route`` names for its shape
+(``mas_fused`` where its decisions fit in shared memory, ``mas_wide``
+everywhere else), or raises. There is no fallback between them. Like the JAX
+``maximum_path`` it takes any float dtype and any layout: the inputs are
+cast to f32 and copied where the kernels need it, and the path comes back in
+the dtype of ``path.to(neg_cent.dtype) * mask``.
 """
 
 from __future__ import annotations
@@ -74,12 +80,28 @@ def maximum_path_torch(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tens
     return path.to(neg_cent.dtype) * mask
 
 
+def kernel_inputs(
+    neg_cent: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """neg_cent and mask as the kernels take them: f32, contiguous, neg_cent
+    on a 16-byte boundary (``mas_fused``'s bulk copies). Casts and copies only
+    where the input is not so already."""
+    neg = neg_cent.to(torch.float32).contiguous()
+    if neg.data_ptr() % 16:
+        neg = neg.clone()
+    return neg, mask.to(torch.float32).contiguous()
+
+
 @torch.no_grad()
 def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """MAS: the fused CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor. neg_cent, mask: [B, T_y, T_x] (frames x text) -> hard path."""
+    """MAS: a CUDA kernel chosen by shape for a CUDA tensor, the plain version
+    for a CPU tensor. neg_cent, mask: [B, T_y, T_x] (frames x text) -> hard
+    path."""
     if neg_cent.device.type == "cuda":
-        return mas_cuda.mas_fused(neg_cent, mask)
+        neg, m = kernel_inputs(neg_cent, mask)
+        _, t_y, t_x = neg.shape
+        kernel = mas_cuda.mas_fused if mas_cuda.route(t_y, t_x) == "fused" else mas_cuda.mas_wide
+        return kernel(neg, m).to(torch.promote_types(neg_cent.dtype, mask.dtype))
     if neg_cent.device.type == "cpu":
         return maximum_path_torch(neg_cent, mask)
     raise ValueError(f"maximum_path: no implementation on {neg_cent.device}")

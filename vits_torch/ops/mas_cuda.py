@@ -1,12 +1,15 @@
 """Wrappers of the MAS CUDA kernels (``vits_torch/csrc/mas.cu``).
 
-``mas_fused`` replaces both ``_forward_kernel`` and ``_backtrack_kernel`` of
-``vits_tpu/ops/mas_pallas.py`` in one launch; it is what ``maximum_path``
-runs on the card, and its plain PyTorch version is ``maximum_path_torch`` in
-``vits_torch/ops/mas.py``. ``mas_forward`` and ``mas_backtrack`` are the
-first port, one kernel per Pallas kernel (plain versions ``mas_decisions``
-and ``mas_backtrack``); no path of the model runs them, and they stay as the
-fused kernel's yardstick.
+``mas_fused`` and ``mas_wide`` each replace both ``_forward_kernel`` and
+``_backtrack_kernel`` of ``vits_tpu/ops/mas_pallas.py`` in one launch, and
+their plain PyTorch version is ``maximum_path_torch`` in
+``vits_torch/ops/mas.py``. ``maximum_path`` runs one of them on the card, as
+``route`` names by shape: ``mas_fused`` (decisions in shared memory) where it
+fits, which includes every shape of ``configs/config_cje.yaml``, and
+``mas_wide`` (decisions in device memory, any shape) everywhere else.
+``mas_forward`` and ``mas_backtrack`` are the first port, one kernel per
+Pallas kernel (plain versions ``mas_decisions`` and ``mas_backtrack``); no
+path of the model runs them, and they stay as the fused kernel's yardstick.
 
 Each wrapper checks what the kernel takes, allocates its output with
 ``torch.empty``, launches on the current stream without synchronising, raises
@@ -24,7 +27,7 @@ import torch
 from vits_torch import _build
 
 # kernel launches since import or the caller's last reset to 0
-launches = {"mas_fused": 0, "mas_forward": 0, "mas_backtrack": 0}
+launches = {"mas_fused": 0, "mas_forward": 0, "mas_backtrack": 0, "mas_wide": 0}
 
 _MAX_SHARED = 48 * 1024  # dynamic shared memory a block may take by default
 _MAX_SHARED_OPT_IN = 232448  # 227 KB, the most a block may take after opting in
@@ -45,6 +48,8 @@ def _lib() -> ctypes.CDLL:
     lib.mas_fused_smem_bytes.restype = ctypes.c_longlong
     lib.mas_fused.argtypes = [p, p, p, i, i, i, p]
     lib.mas_fused.restype = i
+    lib.mas_wide.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.mas_wide.restype = i
     return lib
 
 
@@ -179,4 +184,48 @@ def mas_fused(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"mas_fused launch failed: cudaError {err}")
     launches["mas_fused"] += 1
+    return path
+
+
+def route(t_y: int, t_x: int) -> str:
+    """The kernel ``maximum_path`` launches at [T_y, T_x]: ``"fused"`` where
+    ``mas_fused`` takes the shape (T_x <= 1024 and its shared memory within a
+    block's 232,448 bytes), ``"wide"`` everywhere else."""
+    if t_x <= _FUSED_MAX_COLS and (t_x <= 0 or fused_plan(t_y, t_x)[1] <= _MAX_SHARED_OPT_IN):
+        return "fused"
+    return "wide"
+
+
+def mas_wide(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """MAS in one launch at any shape, the decisions in device memory.
+    neg_cent: [B, T_y, T_x] f32 CUDA; mask: the same shape, the 0/1 rectangle
+    of each item's lengths (the kernel counts them in its first column and
+    row). Returns the hard path [B, T_y, T_x] f32, equal to
+    ``maximum_path_torch(neg_cent, mask)``. Allocates the decisions, bit-packed
+    ([B, T_y, ceil(T_x / 32)] uint32), and the stripes' edge columns ([2, B,
+    T_y] f32) as scratch."""
+    _check_layout(neg_cent, "neg_cent", torch.float32, 3)
+    _check_layout(mask, "mask", torch.float32, 3)
+    if mask.shape != neg_cent.shape:
+        raise ValueError(f"mask {tuple(mask.shape)} must have neg_cent's shape {tuple(neg_cent.shape)}")
+    _check_device(neg_cent, "neg_cent")
+    _check_device(mask, "mask")
+    if mask.device != neg_cent.device:
+        raise ValueError("neg_cent and mask must be on one device")
+    b, t_y, t_x = neg_cent.shape
+    path = torch.empty((b, t_y, t_x), dtype=torch.float32, device=neg_cent.device)
+    if path.numel() == 0:
+        return path
+    dev = neg_cent.device
+    dec = torch.empty((b, t_y, -(-t_x // 32)), dtype=torch.uint32, device=dev)
+    edge = torch.empty((2, b, t_y), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.mas_wide(
+            neg_cent.data_ptr(), mask.data_ptr(), path.data_ptr(), dec.data_ptr(),
+            edge.data_ptr(), b, t_y, t_x, _stream(neg_cent),
+        )
+    if err != 0:
+        raise RuntimeError(f"mas_wide launch failed: cudaError {err}")
+    launches["mas_wide"] += 1
     return path
