@@ -16,12 +16,15 @@ to the CPU):
                t_x = 1, zero-length items, t_y == t_x with partial lengths),
                the main-path shape and the largest bucket (64, 1500, 384);
                the fused kernel and the pair timed in turns (pair, fused,
-               fused, pair) with their bounds; then the shapes mas_fused
-               cannot take, (16, 1500, 512), (16, 2000, 1024), (8, 2000,
-               384), (4, 3000, 2052) and (2, 13000, 64): maximum_path
-               launches mas_wide once each, exact; at the first two
-               mas_wide and the pair timed in turns (pair, wide, wide, pair)
-               with the bound
+               fused, pair) with their bounds, and at the main-path shape
+               mas_wide against mas_fused in turns, for the record (route
+               keeps mas_fused); then the shapes mas_fused cannot take,
+               (16, 1500, 512), (16, 2000, 1024), (8, 2000, 384), (4, 3000,
+               2052) and (2, 13000, 64): the plan of each and the clusters
+               the card holds at once (at least 1), maximum_path launches
+               mas_wide once each, exact; at the first two and at (16, 1500,
+               1024) mas_wide and the pair timed in turns (pair, wide, wide,
+               pair) with the bound, and mas_wide must be the faster
   3. forward   SynthesizerTrn.forward, B=16 x T_y=400, text 129-191 ids,
                features made by the port's spectrogram and Yingram from a
                synthetic waveform; it must launch mas_fused once and the
@@ -169,7 +172,7 @@ MAIN_B, MAIN_T_Y, MAIN_T_X = 16, 400, 191
 # 2000-frame bucket, T_x over 2048, T_y past the first port's backtrack limit (12,288)
 WIDE_CASES = [(16, 1500, 512), (16, 2000, 1024), (8, 2000, 384), (4, 3000, 2052),
               (2, 13000, 64)]
-WIDE_TIMED = [(16, 1500, 512), (16, 2000, 1024)]
+WIDE_TIMED = [(16, 1500, 512), (16, 2000, 1024), (16, 1500, 1024)]
 CHECK_CASES = [(4, 37, 11), (2, 64, 48), (8, 150, 130), (3, 40, 40), (32, 800, 384),
                (64, 1500, 384)]
 # (B, T_y, T_x, t_ys, t_xs): t_y < t_x, t_x = 1, zero-length items, square
@@ -355,9 +358,7 @@ def check_mas(card: str, main_lengths) -> dict:
         dec_plain = mas.mas_decisions(neg, mask)
         bt_plain = cuda_ms(lambda: mas.mas_backtrack(dec_plain, ty, tx), iters=3, warmup=1)
         fused_plain = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=3, warmup=1)
-        # fused: read the scores inside the rectangles and the mask's first
-        # column and row, write the whole f32 path; add, max and compare a cell
-        fused_bound = bound_ms(4 * cells + 4.0 * b * (t_y + t_x) + path_bytes, 3 * cells)
+        fused_bound = mas_bound(ty, tx, t_y, t_x)
         # forward: read the scores inside the rectangles (4 B), write one
         # decision byte each; add, max and compare a cell
         fw_bound = bound_ms(5 * cells, 3 * cells)
@@ -375,11 +376,30 @@ def check_mas(card: str, main_lengths) -> dict:
             raise AssertionError(f"mas {label}: the fused kernel is not faster than the pair")
         rows[label] = dict(fused=(fused_ms, fused_plain, fused_bound), fw=(fw_ms, fw_plain, fw_bound),
                            bt=(bt_ms, bt_plain, bt_bound))
+        if label == "main":
+            # for the record (route keeps mas_fused here): mas_wide on the
+            # same inputs, in turns with mas_fused
+            def wide_kernel():
+                return mas_cuda.mas_wide(neg, mask)
+
+            turns = [cuda_ms(fused), cuda_ms(wide_kernel), cuda_ms(wide_kernel), cuda_ms(fused)]
+            rows["wide_at_main"] = ((turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2)
+            print(f"{card} | mas main B={b} T_y={t_y} T_x={t_x}: in turns fused {turns[0]:.4f}, "
+                  f"wide {turns[1]:.4f}, wide {turns[2]:.4f}, fused {turns[3]:.4f} ms; mas_wide "
+                  f"{rows['wide_at_main'][0]:.4f} ms against mas_fused {rows['wide_at_main'][1]:.4f} "
+                  f"ms (route keeps mas_fused)")
     print(f"{card} | mas note: the fused kernel's time is its serial chain of t_y DP row "
           f"steps and t_y walk steps on one warp an item, not bytes")
 
     # the shapes mas_fused refuses: maximum_path launches mas_wide, once
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (b, t_y, t_x) in enumerate(WIDE_CASES):
+        plan = mas_cuda.wide_plan(b, t_y, t_x, sms)
+        clusters = mas_cuda._lib().mas_wide_active_clusters(b, t_y, t_x)
+        print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: plan {plan}, "
+              f"{clusters} clusters at once (cudaOccupancyMaxActiveClusters)")
+        if clusters < 1:
+            raise AssertionError(f"mas wide: the card holds no cluster of the plan {plan}")
         neg, mask, _, _ = mas_case(b, t_y, t_x, 200 + i, full_first=True)
         before = dict(mas_cuda.launches)
         full = mas.maximum_path(neg, mask)
@@ -409,26 +429,26 @@ def check_mas(card: str, main_lengths) -> dict:
                  cuda_ms(wide_kernel, iters=10), cuda_ms(pair, iters=10)]
         w_ms, pair_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         plain_ms = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1)
-        b_ms, b_by = wide_bound(ty, tx, t_y, t_x)
+        b_ms, b_by = mas_bound(ty, tx, t_y, t_x)
         wide[(b, t_y, t_x)] = (w_ms, plain_ms, (b_ms, b_by))
         print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: in turns pair {turns[0]:.4f}, "
               f"wide {turns[1]:.4f}, wide {turns[2]:.4f}, pair {turns[3]:.4f} ms; mas_wide "
               f"{w_ms:.4f} ms against pair {pair_ms:.4f} ms ({pair_ms / w_ms:.2f}x), plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({w_ms / b_ms:.1f}x the bound)")
-    return {"err": err, "main": rows["main"], "wide": wide}
+        if w_ms >= pair_ms:
+            raise AssertionError(f"mas wide ({b}, {t_y}, {t_x}): mas_wide is not faster than "
+                                 "the pair")
+    return {"err": err, "main": rows["main"], "wide": wide, "wide_at_main": rows["wide_at_main"]}
 
 
-def wide_bound(ty, tx, t_y, t_x):
-    """mas_wide's bound (ms, by) at lengths ty, tx of a [B, T_y, T_x] batch:
-    read the scores inside the rectangles and the mask's first column and
-    row, write the whole f32 path and one decision bit a cell inside the
-    rectangles, read back two decision words a row; an add, a max and a
-    compare a cell."""
+def mas_bound(ty, tx, t_y, t_x):
+    """The bound (ms, by) of maximum_path at lengths ty, tx of a [B, T_y,
+    T_x] batch, whichever kernel computes it: read the scores inside the
+    rectangles and the mask's first column and row, write the whole f32
+    path; an add, a max and a compare a cell."""
     b = ty.numel()
     cells = float((ty.double() * tx.double()).sum())
-    rows = float(ty.double().sum())
-    return bound_ms(4 * cells + 4.0 * b * (t_y + t_x) + 4.0 * b * t_y * t_x + cells / 8
-                    + 8 * rows, 3 * cells)
+    return bound_ms(4 * cells + 4.0 * b * (t_y + t_x) + 4.0 * b * t_y * t_x, 3 * cells)
 
 
 def synthetic_batch(hps, rng, dev, b=MAIN_B, t_y=MAIN_T_Y, t_x=MAIN_T_X, y_low=300,
@@ -2252,11 +2272,11 @@ def check_long_text(card, config_path, seed):
     torch.cuda.empty_cache()
     kernel = (cuda_ms(lambda: mas_cuda.mas_wide(neg, mask), iters=10),
               cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1),
-              wide_bound(mask[:, :, 0].sum(1), mask[:, 0, :].sum(1), t_y, t_x))
+              mas_bound(mask[:, :, 0].sum(1), mask[:, 0, :].sum(1), t_y, t_x))
     print(f"{card} | long text: mas_wide on the last step's inputs {kernel[0]:.4f} ms, plain "
           f"{kernel[1]:.3f} ms, bound {kernel[2][0]:.5f} ms by {kernel[2][1]}")
     return dict(step_ms=ms, peak_bytes=peak, launches=launches, err=err, kernel=kernel,
-                shape=(LONG_B, t_y, t_x))
+                shape=(LONG_B, t_y, t_x), inputs=(neg, mask))
 
 
 def main() -> int:
@@ -2270,6 +2290,7 @@ def main() -> int:
     from vits_torch import _build
     from vits_torch.config import load_hparams
     from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops import mas_cuda
 
     card = card_line()
     print(card)
@@ -2378,6 +2399,10 @@ def main() -> int:
         "shape": list(long_text["shape"]),
         "at": {"x".join(map(str, shape)): {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0]}
                for shape, t in mas_rows["wide"].items()},
+        "plan": mas_cuda.wide_plan(*long_text["shape"],
+                                   torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
+        # for the record: route keeps mas_fused at the main path's shape
+        "at_main_against_fused": dict(zip(("ms", "fused_ms"), mas_rows["wide_at_main"])),
         **on_paths("mas_wide"),
     })
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ their plain PyTorch version is ``maximum_path_torch`` in
 ``vits_torch/ops/mas.py``. ``maximum_path`` runs one of them on the card, as
 ``route`` names by shape: ``mas_fused`` (decisions in shared memory) where it
 fits, which includes every shape of ``configs/config_cje.yaml``, and
-``mas_wide`` (decisions in device memory, any shape) everywhere else.
+``mas_wide`` (an item's columns over a cluster of blocks, decisions in
+device memory, any shape) everywhere else.
 ``mas_forward`` and ``mas_backtrack`` are the first port, one kernel per
 Pallas kernel (plain versions ``mas_decisions`` and ``mas_backtrack``); no
 path of the model runs them, and they stay as the fused kernel's yardstick.
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +34,8 @@ launches = {"mas_fused": 0, "mas_forward": 0, "mas_backtrack": 0, "mas_wide": 0}
 _MAX_SHARED = 48 * 1024  # dynamic shared memory a block may take by default
 _MAX_SHARED_OPT_IN = 232448  # 227 KB, the most a block may take after opting in
 _FUSED_MAX_COLS = 1024
+_MAX_CLUSTER = 8  # the portable thread-block cluster size
+_H100_SMS = 132
 
 
 @functools.cache
@@ -50,6 +54,10 @@ def _lib() -> ctypes.CDLL:
     lib.mas_fused.restype = i
     lib.mas_wide.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.mas_wide.restype = i
+    lib.mas_wide_plan.argtypes = [i, i, i, i, p]
+    lib.mas_wide_plan.restype = i
+    lib.mas_wide_active_clusters.argtypes = [i, i, i]
+    lib.mas_wide_active_clusters.restype = i
     return lib
 
 
@@ -196,14 +204,79 @@ def route(t_y: int, t_x: int) -> str:
     return "wide"
 
 
+class WidePlan(NamedTuple):
+    """How ``mas_wide_kernel`` lays out one launch (``mas.cu::wide_plan``)."""
+
+    cluster: int  # C: blocks an item, one cluster
+    warps: int  # W: DP warps a block
+    k: int  # K: columns a lane, x0 + 32 c + lane for c < K
+    group: int  # G: rows one handover between warps carries
+    stage_rows: int  # R: rows of scores a stage of the copy ring holds
+    stages: int  # S: stages of the copy ring
+    depth: int  # D: groups a handover ring holds
+    smem: int  # dynamic shared-memory bytes a block
+
+    @property
+    def block_cols(self) -> int:
+        return self.warps * 32 * self.k
+
+    @property
+    def stripe_cols(self) -> int:
+        return self.cluster * self.block_cols
+
+
+# mas.cu's kWide* constants
+_WIDE_LANE_COLS, _WIDE_GROUP, _WIDE_DEPTH, _WIDE_STAGE_ROWS, _WIDE_MAX_STAGES = 2, 16, 4, 16, 8
+_WIDE_RING_BUDGET, _WIDE_MAX_WARPS, _WIDE_PLAN_WARPS, _WIDE_FILL_WARPS = 160 * 1024, 8, 4, 1
+# WideShared (the handover rings, their mbarriers, the stages' mbarriers, the
+# length counts of every warp), rounded up to 1024 bytes. This plan is mas.cu's
+# written out again for the CPU model of the kernel and the tests; the card
+# test test_wide_plan_is_the_kernels holds the two equal.
+_WIDE_HEADER = -(-(_WIDE_MAX_WARPS * _WIDE_DEPTH * (4 * _WIDE_GROUP + 16) + 16 * _WIDE_MAX_STAGES
+                   + 8 * (_WIDE_MAX_WARPS + 1 + _WIDE_FILL_WARPS) + 7) // 8 * 8 // 1024) * 1024
+
+
+def wide_plan(b: int, t_y: int, t_x: int, sms: int = _H100_SMS) -> WidePlan:
+    """``mas_wide_kernel``'s plan at [B, T_y, T_x] (each >= 1) on a card of
+    ``sms`` SMs, as ``mas.cu`` computes it. K = 2 columns a lane; C blocks
+    an item, as many as hold 4 DP warps each, at most 8
+    and at most sms // B; W DP warps a block, up to 8, as many as the row
+    needs over C blocks; then C again, so that no block lies wholly past T_x
+    (rows wider than C W 32 K columns run as stripes); G = 16 rows a
+    handover, D = 4 of them in a ring; S stages of R = 16 rows, 2 to 8,
+    within 160 KB and no more than the T_y - 1 row steps need. The shared
+    memory is a header (``_WIDE_HEADER``) and the stages, each row of them
+    the block's columns and 16 bytes for the aligned superset the copy
+    takes."""
+    k = _WIDE_LANE_COLS
+    need = -(-t_x // (32 * k))  # warps a row needs
+    room = max(1, min(_MAX_CLUSTER, sms // b))
+    c = min(room, -(-need // _WIDE_PLAN_WARPS))
+    warps = min(_WIDE_MAX_WARPS, -(-need // c))
+    cluster = min(c, -(-need // warps))
+    stage = _WIDE_STAGE_ROWS * (warps * 32 * k * 4 + 16)
+    rows = -(-max(t_y - 1, 1) // _WIDE_STAGE_ROWS)
+    stages = max(2, min(_WIDE_MAX_STAGES, _WIDE_RING_BUDGET // stage, rows))
+    return WidePlan(cluster, warps, k, _WIDE_GROUP, _WIDE_STAGE_ROWS, stages, _WIDE_DEPTH,
+                    _WIDE_HEADER + stages * stage)
+
+
+def wide_dec_words(t_x: int) -> int:
+    """Words of a decision row in ``mas_wide``'s scratch: ceil(T_x / 32),
+    padded to a multiple of 2 (a warp stores its K = 2 words as one 8-byte
+    store)."""
+    return (-(-t_x // 32) + 1) // 2 * 2
+
+
 def mas_wide(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """MAS in one launch at any shape, the decisions in device memory.
-    neg_cent: [B, T_y, T_x] f32 CUDA; mask: the same shape, the 0/1 rectangle
-    of each item's lengths (the kernel counts them in its first column and
-    row). Returns the hard path [B, T_y, T_x] f32, equal to
-    ``maximum_path_torch(neg_cent, mask)``. Allocates the decisions, bit-packed
-    ([B, T_y, ceil(T_x / 32)] uint32), and the stripes' edge columns ([2, B,
-    T_y] f32) as scratch."""
+    """MAS in one launch at any shape: an item's columns over a cluster of
+    blocks (``wide_plan``), the decisions in device memory. neg_cent:
+    [B, T_y, T_x] f32 CUDA; mask: the same shape, the 0/1 rectangle of each
+    item's lengths (the kernel counts them in its first column and row).
+    Returns the hard path [B, T_y, T_x] f32, equal to
+    ``maximum_path_torch(neg_cent, mask)``. Allocates the decisions,
+    bit-packed ([B, T_y, wide_dec_words(T_x)] uint32), and the stripes' edge
+    columns ([2, B, T_y] f32) as scratch."""
     _check_layout(neg_cent, "neg_cent", torch.float32, 3)
     _check_layout(mask, "mask", torch.float32, 3)
     if mask.shape != neg_cent.shape:
@@ -217,7 +290,7 @@ def mas_wide(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if path.numel() == 0:
         return path
     dev = neg_cent.device
-    dec = torch.empty((b, t_y, -(-t_x // 32)), dtype=torch.uint32, device=dev)
+    dec = torch.empty((b, t_y, wide_dec_words(t_x)), dtype=torch.uint32, device=dev)
     edge = torch.empty((2, b, t_y), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
