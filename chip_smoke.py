@@ -24,7 +24,10 @@ to the CPU):
                the card holds at once (at least 1), maximum_path launches
                mas_wide once each, exact; at the first two and at (16, 1500,
                1024) mas_wide and the pair timed in turns (pair, wide, wide,
-               pair) with the bound, and mas_wide must be the faster
+               pair) with the bound, and mas_wide must be the faster; then
+               the benchmark scripts' train shapes (32, 400, 128) and (16,
+               400, 128), random lengths with item 0 full: maximum_path
+               launches mas_fused once each, exact, and its time and bound
   3. forward   SynthesizerTrn.forward, B=16 x T_y=400, text 129-191 ids,
                features made by the port's spectrogram and Yingram from a
                synthetic waveform; it must launch mas_fused once and the
@@ -132,6 +135,18 @@ to the CPU):
                step and mas_fused never, every step's path equal to
                maximum_path_torch on its inputs, finite losses, step times
                and peak memory; mas_wide timed on the last step's inputs
+15. bench      the port's benchmark scripts as a user runs them, each a
+               subprocess from the repo root at full CJE width: python3
+               bench_torch.py, python3 bench_train_torch.py --bf16, the same
+               with --iters 2 --trace <tmp>, python3 bench_matrix_torch.py.
+               Each exits 0; its last stdout line (the matrix's last six) is
+               JSON with every key of the JAX script's line (read from
+               bench.py's, bench_train.py's and bench_matrix.py's source),
+               every number finite and > 0, train_mfu in (0, 1], device
+               naming this card; the trace holds CUDA kernel events (their
+               busy time and idle share printed); each script's MAS launches
+               (its last stderr line) are one mas_fused a train step and no
+               other
 Then no process the phases started (loader workers, nvcc, torchrun, ranks)
 may be left running: any still alive after 10 s is killed and the script
 fails.
@@ -144,6 +159,7 @@ name and power limit. Needs a CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import ast
 import importlib.util
 import json
 import os
@@ -173,6 +189,9 @@ MAIN_B, MAIN_T_Y, MAIN_T_X = 16, 400, 191
 WIDE_CASES = [(16, 1500, 512), (16, 2000, 1024), (8, 2000, 384), (4, 3000, 2052),
               (2, 13000, 64)]
 WIDE_TIMED = [(16, 1500, 512), (16, 2000, 1024), (16, 1500, 1024)]
+# the benchmark scripts' train steps: bench_torch.py's B=32 and
+# bench_train_torch.py's and bench_matrix_torch.py's B=16, x 400 frames x 128 symbols
+BENCH_MAS_CASES = [(32, 400, 128), (16, 400, 128)]
 CHECK_CASES = [(4, 37, 11), (2, 64, 48), (8, 150, 130), (3, 40, 40), (32, 800, 384),
                (64, 1500, 384)]
 # (B, T_y, T_x, t_ys, t_xs): t_y < t_x, t_x = 1, zero-length items, square
@@ -183,14 +202,6 @@ EDGE_CASES = [
     (4, 30, 12, [30, 0, 18, 0], [0, 12, 9, 0]),
     (3, 40, 40, [40, 33, 25], [40, 33, 17]),
 ]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def descendants() -> dict[int, str]:
@@ -438,7 +449,29 @@ def check_mas(card: str, main_lengths) -> dict:
         if w_ms >= pair_ms:
             raise AssertionError(f"mas wide ({b}, {t_y}, {t_x}): mas_wide is not faster than "
                                  "the pair")
-    return {"err": err, "main": rows["main"], "wide": wide, "wide_at_main": rows["wide_at_main"]}
+    # the benchmark scripts' shapes (phase 15): maximum_path launches mas_fused
+    bench = {}
+    for i, (b, t_y, t_x) in enumerate(BENCH_MAS_CASES):
+        neg, mask, ty, tx = mas_case(b, t_y, t_x, 300 + i, full_first=True)
+        before = dict(mas_cuda.launches)
+        full = mas.maximum_path(neg, mask)
+        torch.cuda.synchronize()
+        launched = {k: mas_cuda.launches[k] - before[k] for k in before}
+        e_p = (full - mas.maximum_path_torch(neg, mask)).abs().max().item()
+        ms = cuda_ms(lambda: mas_cuda.mas_fused(neg, mask))
+        plain_ms = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1)
+        b_ms, b_by = mas_bound(ty, tx, t_y, t_x)
+        bench[(b, t_y, t_x)] = (ms, plain_ms, (b_ms, b_by))
+        print(f"{card} | mas bench B={b} T_y={t_y} T_x={t_x}: route {mas_cuda.route(t_y, t_x)}, "
+              f"maximum_path launched {launched}, max|err|={e_p}; mas_fused {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({ms / b_ms:.1f}x the bound)")
+        if launched != mas_only(mas_fused=1):
+            raise AssertionError(f"mas bench: maximum_path must launch mas_fused once, {launched}")
+        if e_p:
+            raise AssertionError("mas_fused disagrees with the plain version")
+        err["mas_fused"] = max(err["mas_fused"], e_p)
+    return {"err": err, "main": rows["main"], "wide": wide, "wide_at_main": rows["wide_at_main"],
+            "bench": bench}
 
 
 def mas_bound(ty, tx, t_y, t_x):
@@ -2279,6 +2312,120 @@ def check_long_text(card, config_path, seed):
                 shape=(LONG_B, t_y, t_x), inputs=(neg, mask))
 
 
+def jax_bench_lines(script: Path) -> list[dict]:
+    """The JSON lines a JAX benchmark script prints, read from its source:
+    {"metric": the "metric" literal or None, "keys": the set of keys} for
+    each ``json.dumps`` of a dict literal, or of a name bound to one (with
+    the keys the script adds to it by subscript assignment), in source
+    order."""
+    tree = ast.parse(script.read_text())
+    built: dict[str, dict] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            target = node.targets[0]
+            if isinstance(target, ast.Name) and isinstance(node.value, ast.Dict):
+                built[target.id] = {"node": node.value, "extra": set()}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Subscript):
+            sub = node.targets[0]
+            if isinstance(sub.value, ast.Name) and sub.value.id in built \
+                    and isinstance(sub.slice, ast.Constant):
+                built[sub.value.id]["extra"].add(sub.slice.value)
+    lines = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "dumps" and node.args):
+            continue
+        arg, extra = node.args[0], set()
+        if isinstance(arg, ast.Name) and arg.id in built:
+            arg, extra = built[arg.id]["node"], built[arg.id]["extra"]
+        if not isinstance(arg, ast.Dict):
+            continue
+        keys = {k.value for k in arg.keys}
+        metric = next((v.value for k, v in zip(arg.keys, arg.values)
+                       if k.value == "metric" and isinstance(v, ast.Constant)), None)
+        lines.append((node.lineno, {"metric": metric, "keys": keys | extra}))
+    return [line for _, line in sorted(lines, key=lambda item: item[0])]
+
+
+BENCH_TIMEOUT_S = 420  # phase 15: each script's limit; ~1 minute each on an H100
+
+
+def run_bench_script(card, script, args, jax_script, n_lines) -> tuple[list[dict], dict]:
+    """Runs one benchmark script from the repo root; its JSON lines (held
+    to the JAX script's keys, every number finite and > 0) and its last
+    stderr record of train steps and MAS launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    print(f"{card} | bench {' '.join([script, *args])}: exit {proc.returncode} in {wall:.1f} s")
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"bench: {script} exited {proc.returncode}")
+    err_lines = proc.stderr.strip().splitlines()
+    for line in err_lines:
+        if line.startswith(script):
+            print(f"{card} | bench {line}")
+    counted = next(json.loads(line) for line in reversed(err_lines)
+                   if line.startswith('{"script": '))
+    lines = [json.loads(line) for line in proc.stdout.strip().splitlines()[-n_lines:]]
+    for line, ref in zip(lines, jax_bench_lines(ROOT / jax_script), strict=True):
+        print(f"{card} | bench {script} {json.dumps(line)}")
+        if set(line) != ref["keys"] or line.get("metric") != ref["metric"]:
+            raise AssertionError(f"bench: {script}'s line {line.get('metric')} differs from "
+                                 f"{jax_script}'s in {sorted(set(line) ^ ref['keys'])}")
+        for k, v in line.items():
+            number = isinstance(v, (int, float)) and not isinstance(v, bool)
+            if v is None or number and not (np.isfinite(v) and v > 0):
+                raise AssertionError(f"bench: {script}'s {k} is {v}")
+    print(f"{card} | bench {script}: {counted['train_steps']} train steps, MAS launches "
+          f"{counted['mas_launches']}")
+    if counted["mas_launches"] != mas_only(mas_fused=counted["train_steps"]) \
+            or not counted["train_steps"]:
+        raise AssertionError(f"bench: {script} must launch mas_fused once a train step")
+    return lines, counted["mas_launches"]
+
+
+def check_bench(card, tmp: Path):
+    """Phase 15: the port's benchmark scripts run as a user runs them."""
+    kind = torch.cuda.get_device_name(0)
+    launches = {}
+    lines, launches["bench_torch"] = run_bench_script(card, "bench_torch.py", [], "bench.py", 1)
+    line = lines[0]
+    print(f"{card} | bench train step B={line['train_batch_size']} x 400 frames: "
+          f"{line['train_flops_per_step'] / 1e12:.4f} TFLOP a step (step_flops), MFU "
+          f"{line['train_mfu']:.6f} of the dense bf16 peak, peak memory "
+          f"{line['train_hbm_bytes'] / 2**30:.2f} GiB")
+    if not 0 < line["train_mfu"] <= 1 or not line["device"].startswith(kind):
+        raise AssertionError(f"bench: train_mfu {line['train_mfu']}, device "
+                             f"{line['device']!r} (card {kind!r})")
+    _, launches["bench_train_torch"] = run_bench_script(card, "bench_train_torch.py", ["--bf16"],
+                                                        "bench_train.py", 1)
+    # traced apart, over 2 steps: 10 full-width steps make a trace of hundreds of MB
+    trace_dir = tmp / "trace"
+    _, launches["bench_train_torch_traced"] = run_bench_script(
+        card, "bench_train_torch.py", ["--bf16", "--iters", "2", "--trace", str(trace_dir)],
+        "bench_train.py", 1)
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    print(f"{card} | bench bench_train_torch.py trace: {len(events)} events, {len(kernels)} "
+          f"CUDA kernel events")
+    if not kernels:
+        raise AssertionError("bench: the trace holds no CUDA kernel event")
+    busy, end = 0.0, kernels[0][0]
+    for start, stop in kernels:  # the union of the kernels' intervals
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    span = end - kernels[0][0]
+    print(f"{card} | bench bench_train_torch.py trace: kernels busy {busy / 1e3:.3f} ms of the "
+          f"{span / 1e3:.3f} ms from the first kernel to the last, idle share "
+          f"{1 - busy / span:.3f} (under the profiler, which stretches the host's side)")
+    _, launches["bench_matrix_torch"] = run_bench_script(card, "bench_matrix_torch.py", [],
+                                                         "bench_matrix.py", 6)
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2291,8 +2438,9 @@ def main() -> int:
     from vits_torch.config import load_hparams
     from vits_torch.models.synthesizer import build_synthesizer
     from vits_torch.ops import mas_cuda
+    from vits_torch.utils.profiling import card_name
 
-    card = card_line()
+    card = card_name()
     print(card)
     print(f"{card} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -2340,6 +2488,9 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
     long_text = check_long_text(card, str(ROOT / "configs" / "config_cje.yaml"), args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = check_bench(card, Path(tmp))
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")
@@ -2370,6 +2521,8 @@ def main() -> int:
             "launches_in_migration": migration["launches"][name],
             # phase 14: 1 + 3 long-text train steps, T_x 1024 x T_y 1500
             "launches_in_long_text": long_text["launches"][name],
+            # phase 15: each benchmark script's train steps (one launch a step)
+            "launches_in_bench": {k: v[name] for k, v in bench["launches"].items()},
         }
 
     kernels = []
@@ -2386,6 +2539,10 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **on_paths(name),
         })
     kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
+    # the benchmark scripts' train shapes (phase 2)
+    kernels[0]["at_bench"] = {"x".join(map(str, shape)): {"ms": t[0], "plain_ms": t[1],
+                                                          "bound_ms": t[2][0]}
+                              for shape, t in mas_rows["bench"].items()}
     # mas_wide replaces both as well, at the shapes mas_fused cannot take; its
     # path is phase 14's, and its times are on that path's last MAS inputs
     ms, plain_ms, (b_ms, b_by) = long_text["kernel"]

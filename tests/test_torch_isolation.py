@@ -20,6 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vits_tpu")
 def _port_sources():
     return sorted((ROOT / "vits_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py",
+        ROOT / "bench_torch.py",
+        ROOT / "bench_train_torch.py",
+        ROOT / "bench_matrix_torch.py",
         ROOT / "tools" / "profile_torch_slice.py",
         ROOT / "tools" / "probe_mas_fused.py",
         ROOT / "tools" / "probe_step_grads.py",

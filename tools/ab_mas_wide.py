@@ -96,8 +96,9 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from vits_torch import _build
+    from vits_torch.utils.profiling import card_name
 
-    card = cs.card_line()
+    card = card_name()
     print(f"{card} | torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build(["mas"])
     lib = build_other(args.other)

@@ -974,8 +974,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import chip_smoke
+    from vits_torch.utils.profiling import card_name
 
-    card = chip_smoke.card_line() if args.device != "cpu" else "cpu"
+    card = card_name() if args.device != "cpu" else "cpu"
     if args.cmd == "train":
         train(args.workdir, args.variant, args.steps, args.seed, device=args.device,
               out=args.out)

@@ -29,7 +29,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (the card line and the texts)
+import chip_smoke  # noqa: E402  (the texts)
 
 TEXT = chip_smoke.SERVE_TEXTS["EN"]
 
@@ -67,8 +67,9 @@ def main() -> int:
         print("probe_serve_threads: needs a CUDA device", file=sys.stderr)
         return 2
     from vits_torch.serve.engine import TTSEngine
+    from vits_torch.utils.profiling import card_name
 
-    card = chip_smoke.card_line()
+    card = card_name()
     torch.manual_seed(args.seed)
     eng = TTSEngine(str(ROOT / "configs" / "config_cje.yaml"), max_frames=1000)
     steps(eng, args.seed)  # warm the main thread

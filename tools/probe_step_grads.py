@@ -26,7 +26,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (the tiny step pair and the card line)
+import chip_smoke  # noqa: E402  (the tiny step pair)
 
 RUNS = ({}, {"c_yin": 0.0}, {"c_mel": 0.0}, {"c_yin": 0.0, "c_mel": 0.0})
 
@@ -56,7 +56,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_step_grads: needs a CUDA device", file=sys.stderr)
         return 2
-    card = chip_smoke.card_line()
+    from vits_torch.utils.profiling import card_name
+
+    card = card_name()
     for train in RUNS:
         _, states, metrics, _ = chip_smoke.tiny_train_step_pair(args.seed, **train)
         rows = gradient_gaps(states, metrics)

@@ -40,7 +40,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (the synthetic batch and the card line)
+import chip_smoke  # noqa: E402  (the synthetic batch)
 
 
 def wall_ms(fn, iters):
@@ -234,8 +234,9 @@ def main() -> int:
     from vits_torch.config import load_hparams
     from vits_torch.models.synthesizer import build_synthesizer
     from vits_torch.text.symbols import symbols
+    from vits_torch.utils.profiling import card_name
 
-    card = chip_smoke.card_line()
+    card = card_name()
     hps = load_hparams(str(ROOT / "configs" / "config_cje.yaml"))
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda")

@@ -40,8 +40,9 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from vits_torch import _build
     from vits_torch.config import load_hparams
+    from vits_torch.utils.profiling import card_name
 
-    card = cs.card_line()
+    card = card_name()
     label = f"{root.name}{' ' + args.variant if args.variant else ''}"
     if args.variant:
         spec = importlib.util.spec_from_file_location(
