@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from vits_torch.ops import mas_cuda
+from vits_torch.utils.profiling import span
 
 BIG_NEG = -1e9
 
@@ -96,12 +97,14 @@ def kernel_inputs(
 def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """MAS: a CUDA kernel chosen by shape for a CUDA tensor, the plain version
     for a CPU tensor. neg_cent, mask: [B, T_y, T_x] (frames x text) -> hard
-    path."""
-    if neg_cent.device.type == "cuda":
-        neg, m = kernel_inputs(neg_cent, mask)
-        _, t_y, t_x = neg.shape
-        kernel = mas_cuda.mas_fused if mas_cuda.route(t_y, t_x) == "fused" else mas_cuda.mas_wide
-        return kernel(neg, m).to(torch.promote_types(neg_cent.dtype, mask.dtype))
-    if neg_cent.device.type == "cpu":
-        return maximum_path_torch(neg_cent, mask)
+    path (span ``mas``)."""
+    with span("mas"):
+        if neg_cent.device.type == "cuda":
+            neg, m = kernel_inputs(neg_cent, mask)
+            _, t_y, t_x = neg.shape
+            route = mas_cuda.route(t_y, t_x)
+            kernel = mas_cuda.mas_fused if route == "fused" else mas_cuda.mas_wide
+            return kernel(neg, m).to(torch.promote_types(neg_cent.dtype, mask.dtype))
+        if neg_cent.device.type == "cpu":
+            return maximum_path_torch(neg_cent, mask)
     raise ValueError(f"maximum_path: no implementation on {neg_cent.device}")

@@ -18,6 +18,19 @@ draws: ``shapes`` maps the model's ``noise`` names to shapes (``sdp_noise``
 and ``eps`` for synthesis, ``eps_spec`` and ``eps_yin`` for a VC window) and
 it returns float32 arrays of those shapes under those names.
 
+Tracing (``utils/profiling.py``, live while tracing is on): spans
+``serve.g2p`` (``get_phoneme``), ``serve.noise``, ``serve.infer`` (the
+model's inference call), ``serve.sync`` (the predicted length to the host,
+which waits for the call's kernels) and ``serve.d2h`` (the audio to the
+host); counters ``serve.requests`` (calls of ``synthesize``,
+``synthesize_chunked``, ``synthesize_streaming`` and requests of
+``synthesize_batch``), ``serve.infer_calls`` and ``serve.escalations``
+(budgeted calls, and those made again at a larger frame budget),
+``serve.frames_decoded`` (budget x rows of each budgeted call) and
+``serve.frames_kept`` (the predicted lengths of the rows whose audio is
+returned: an escalated call's frames, and a saturated batch row's, are all
+decoded and none kept).
+
 Every call runs under ``torch.inference_mode()`` on the engine's device:
 ``cuda`` unless ``device`` names another. ``enable_persistent_cache`` of the
 JAX engine (XLA's compile cache) has no counterpart: eager PyTorch compiles
@@ -37,6 +50,7 @@ from vits_torch.text import cleaned_text_to_sequence
 from vits_torch.text.cleaners import clean_text
 from vits_torch.text.symbols import symbols
 from vits_torch.training.checkpoint import load_eval_params
+from vits_torch.utils.profiling import count, span
 
 NOISE_SCALE, NOISE_SCALE_W = 0.667, 0.8
 
@@ -44,6 +58,12 @@ NOISE_SCALE, NOISE_SCALE_W = 0.667, 0.8
 def _seed(seed) -> int:
     """The JAX engine's uint32 seed."""
     return int(seed) & 0xFFFFFFFF
+
+
+def _count_infer(decoded: int) -> None:
+    """One budgeted model call of ``decoded`` frames (the budget x the rows)."""
+    count("serve.infer_calls")
+    count("serve.frames_decoded", decoded)
 
 
 class TTSEngine:
@@ -115,16 +135,17 @@ class TTSEngine:
 
     def get_phoneme(self, text: str):
         """Tagged text -> (ids, lang ids, IPA string)."""
-        cleaned_text, lang = clean_text(text)
-        seq = cleaned_text_to_sequence(cleaned_text)
-        if not seq:
-            raise ValueError(
-                "empty phoneme sequence — input must contain language-tagged "
-                "blocks like [EN]...[EN], [ZH]...[ZH], [JA]...[JA], [P]...[P]"
-            )
-        if self.hps.data.add_blank:
-            seq, lang = intersperse_with_language_id(seq, lang, 0)
-        return np.asarray(seq, np.int32), np.asarray(lang, np.int32), cleaned_text
+        with span("serve.g2p"):
+            cleaned_text, lang = clean_text(text)
+            seq = cleaned_text_to_sequence(cleaned_text)
+            if not seq:
+                raise ValueError(
+                    "empty phoneme sequence — input must contain language-tagged "
+                    "blocks like [EN]...[EN], [ZH]...[ZH], [JA]...[JA], [P]...[P]"
+                )
+            if self.hps.data.add_blank:
+                seq, lang = intersperse_with_language_id(seq, lang, 0)
+            return np.asarray(seq, np.int32), np.asarray(lang, np.int32), cleaned_text
 
     def _bucket(self, n: int) -> int:
         for b in self.TEXT_BUCKETS:
@@ -186,15 +207,22 @@ class TTSEngine:
         buckets = self._frame_buckets()
         frames = self._first_frames(len(seq), duration)
         while True:
-            noise = self._noise([seed], self._synth_shapes(tx, frames))
-            wav, _, y_len = self.model.infer(
-                x, t, xl, sid, noise=noise, **self._infer_kwargs(duration, scope_shift, frames)
-            )
-            y_len = int(y_len[0])  # host sync: the budget decision needs it
+            with span("serve.noise"):
+                noise = self._noise([seed], self._synth_shapes(tx, frames))
+            with span("serve.infer"):
+                wav, _, y_len = self.model.infer(
+                    x, t, xl, sid, noise=noise, **self._infer_kwargs(duration, scope_shift, frames)
+                )
+            with span("serve.sync"):
+                y_len = int(y_len[0])  # host sync: the budget decision needs it
+            _count_infer(frames)
             if y_len < frames or frames == buckets[-1]:
                 break
+            count("serve.escalations")
             frames = next(b for b in buckets if b > frames)
-        return wav[0, : y_len * self.hop, 0].float().cpu().numpy()
+        count("serve.frames_kept", y_len)
+        with span("serve.d2h"):
+            return wav[0, : y_len * self.hop, 0].float().cpu().numpy()
 
     def synthesize(
         self,
@@ -208,6 +236,10 @@ class TTSEngine:
 
         Never truncates: long inputs are split at phrase boundaries and the
         pieces concatenated, piece i drawing its noise from seed + i."""
+        count("serve.requests")
+        return self._synthesize(text, speaker_id, seed, scope_shift, duration)
+
+    def _synthesize(self, text, speaker_id, seed, scope_shift, duration):
         seq, lang, phones = self.get_phoneme(text)
         pieces = [
             self._synth_segment(s, la, speaker_id, seed + i, scope_shift, duration)
@@ -230,6 +262,7 @@ class TTSEngine:
         largest text bucket, or whose frame budget saturates, take the
         single-request path.
         """
+        count("serve.requests", len(requests))
         results: list[np.ndarray | Exception | None] = [None] * len(requests)
         groups: dict[tuple[int, int], list] = {}
         for i, req in enumerate(requests):
@@ -267,23 +300,29 @@ class TTSEngine:
                 durs[row] = float(req.get("duration", 1.0))
                 shifts[row] = int(req.get("scope_shift", 0))
             dev = self.device
-            noise = self._noise(seeds, self._synth_shapes(tx, frames))
-            wavs, _, y_lens = self.model.infer(
-                *(torch.from_numpy(a).to(dev) for a in (x, t, xl, sid)), noise=noise,
-                **self._infer_kwargs(torch.from_numpy(durs), torch.from_numpy(shifts), frames),
-            )
-            wavs = wavs[..., 0].float().cpu().numpy()
-            y_lens = y_lens.cpu().numpy()
+            with span("serve.noise"):
+                noise = self._noise(seeds, self._synth_shapes(tx, frames))
+            with span("serve.infer"):
+                wavs, _, y_lens = self.model.infer(
+                    *(torch.from_numpy(a).to(dev) for a in (x, t, xl, sid)), noise=noise,
+                    **self._infer_kwargs(torch.from_numpy(durs), torch.from_numpy(shifts), frames),
+                )
+            with span("serve.sync"):
+                y_lens = y_lens.cpu().numpy()
+            with span("serve.d2h"):
+                wavs = wavs[..., 0].float().cpu().numpy()
+            _count_infer(frames * nb)
             for row, (i, seq, lang, req) in enumerate(items):
                 if int(y_lens[row]) >= frames and frames < self._frame_buckets()[-1]:
                     # frame budget saturated: redo via the escalating path
                     results[i] = self._synthesize_request(req)
                 else:
+                    count("serve.frames_kept", int(y_lens[row]))
                     results[i] = wavs[row, : int(y_lens[row]) * self.hop]
         return results
 
     def _synthesize_request(self, req: dict) -> np.ndarray:
-        _, (_, audio) = self.synthesize(
+        _, (_, audio) = self._synthesize(
             req["text"], req.get("speaker_id", 0), req.get("seed", 0),
             req.get("scope_shift", 0), req.get("duration", 1.0),
         )
@@ -335,6 +374,7 @@ class TTSEngine:
     def _chunk_stream(
         self, text, speaker_id, seed, scope_shift, duration, chunk_frames, overlap_frames
     ):
+        count("serve.requests")
         seq_all, lang_all, phones = self.get_phoneme(text)
         segments = self._split_segments(seq_all, lang_all, self.TEXT_BUCKETS[-1])
         return phones, self._chunk_iter(
@@ -351,14 +391,21 @@ class TTSEngine:
             buckets = self._frame_buckets()
             frames = self._first_frames(len(seq), duration)
             while True:
-                noise = self._noise([seed + seg_i], self._synth_shapes(tx, frames))
-                dec_inputs, _, y_lengths, _ = self.model.infer_pre_decoder(
-                    x, t, xl, sid, noise=noise, **self._infer_kwargs(duration, scope_shift, frames)
-                )
-                total = int(y_lengths[0])
+                with span("serve.noise"):
+                    noise = self._noise([seed + seg_i], self._synth_shapes(tx, frames))
+                with span("serve.infer"):
+                    dec_inputs, _, y_lengths, _ = self.model.infer_pre_decoder(
+                        x, t, xl, sid, noise=noise,
+                        **self._infer_kwargs(duration, scope_shift, frames)
+                    )
+                with span("serve.sync"):
+                    total = int(y_lengths[0])
+                _count_infer(frames)
                 if total < frames or frames == buckets[-1]:
                     break
+                count("serve.escalations")
                 frames = next(b for b in buckets if b > frames)
+            count("serve.frames_kept", total)
             dec_inputs = dec_inputs[0]  # [T, C], stays on the device
 
             # dispatch every chunk's decode before fetching any, so decodes
@@ -374,10 +421,13 @@ class TTSEngine:
                 window[0, : hi - lo] = dec_inputs[lo:hi]
                 start = (pos - lo) * self.hop
                 end = start + min(chunk_frames, total - pos) * self.hop
-                pending.append((self.model.infer_decode_chunk(window, sid), start, end))
+                with span("serve.infer"):
+                    pending.append((self.model.infer_decode_chunk(window, sid), start, end))
                 pos += chunk_frames
             for wav_chunk, start, end in pending:
-                yield wav_chunk[0, start:end, 0].float().cpu().numpy()
+                with span("serve.d2h"):
+                    audio = wav_chunk[0, start:end, 0].float().cpu().numpy()
+                yield audio
 
     def voice_conversion(self, wav: np.ndarray, sid_src: int, sid_tgt: int, seed: int = 0):
         """Waveform -> target-speaker waveform via the shared flow.

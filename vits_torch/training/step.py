@@ -21,6 +21,13 @@ the learning rate before each update, from the optimizer's own update count.
 Every parameter takes part in every update (a parameter without a gradient
 gets a zero one, so that weight decay reaches it, as it does in optax).
 
+Each phase is a span of ``utils/profiling.py`` (live while tracing is on):
+``train.inputs`` (the batch to the device, the draws), ``train.g_forward``,
+``train.d_forward`` (the real side, PhaseAug, D, its loss),
+``train.d_backward``, ``train.d_update`` (the metrics' stack, the gradient
+norm, the lr, ``AdamW.step``), ``train.g_loss``, ``train.g_backward``,
+``train.g_update``.
+
 ``hps.train.remat_run`` wraps the generator forward and each discriminator
 application in ``torch.utils.checkpoint``. ``hps.train.nan_guard`` reverts a
 side's parameters and Adam moments when its loss or gradient norm is not
@@ -81,6 +88,7 @@ from vits_torch.ops.phaseaug import phaseaug_sync, sample_phi
 from vits_torch.ops.stft import mel_spectrogram, spec_to_mel
 from vits_torch.parallel import mesh
 from vits_torch.training import losses as L
+from vits_torch.utils.profiling import span
 
 BATCH_KEYS = ("x", "t", "x_lengths", "spec", "spec_lengths", "ying", "wav", "sid")
 
@@ -220,27 +228,28 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     is drawn for the global batch, and the metrics are the global ones."""
     model, disc = state.model, state.disc
     dev = model.device
-    b = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS}
     d = hps.data
     hop, seg = d.hop_length, hps.train.segment_size
     seg_frames = seg // hop
-    bsz, t_x = b["x"].shape
     remat = bool(hps.train.get("remat_run", False))
     nan_guard = bool(hps.train.get("nan_guard", False))
-
     ddp = state.ddp is not None
     world = mesh.data_count() if ddp else 1
-    batch_global = bsz * world
 
-    noise = dict(noise or {})
-    if any(k not in noise for k in FORWARD_NOISE):
-        noise = {**model.draw_noise(batch_global, t_x, b["spec"].shape[1], generator), **noise}
-    for k in ("phi_d", "phi_g"):  # PhaseAug rotates the 2B rows of (real, generated)
-        if k not in noise:
-            noise[k] = sample_phi(2 * batch_global, generator, dev)
-    if ddp:
-        noise = mesh.rank_rows(noise, mesh.data_index(), world, batch_global)
-    phi_d, phi_g = (torch.as_tensor(noise[k], device=dev) for k in ("phi_d", "phi_g"))
+    with span("train.inputs"):
+        b = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS}
+        bsz, t_x = b["x"].shape
+        batch_global = bsz * world
+        noise = dict(noise or {})
+        if any(k not in noise for k in FORWARD_NOISE):
+            noise = {**model.draw_noise(batch_global, t_x, b["spec"].shape[1], generator),
+                     **noise}
+        for k in ("phi_d", "phi_g"):  # PhaseAug rotates the 2B rows of (real, generated)
+            if k not in noise:
+                noise[k] = sample_phi(2 * batch_global, generator, dev)
+        if ddp:
+            noise = mesh.rank_rows(noise, mesh.data_index(), world, batch_global)
+        phi_d, phi_g = (torch.as_tensor(noise[k], device=dev) for k in ("phi_d", "phi_g"))
 
     if ddp:
         gen_apply, disc_apply = state.ddp
@@ -255,66 +264,76 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     disc_apply.train()
     gen_args = (b["x"], b["t"], b["x_lengths"], b["spec"], b["spec_lengths"], b["ying"],
                 b["sid"])
-    out = gen_apply(*gen_args, noise=noise, x_mask_total=x_total)
+    with span("train.g_forward"):
+        out = gen_apply(*gen_args, noise=noise, x_mask_total=x_total)
     ids = out["ids_slice"].long()  # [2B], halves identical
 
-    # -- 2. the real side ------------------------------------------------------
-    mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
-                      d.mel_fmin, d.mel_fmax)
-    y_mel = slice_segments(mel, ids[:bsz], seg_frames)
-    wav2 = torch.cat([b["wav"], b["wav"]], dim=0)
-    y_sliced = slice_segments(wav2, ids * hop, seg)  # [2B, seg, 1]
+    with span("train.d_forward"):
+        # -- 2. the real side --------------------------------------------------
+        mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
+                          d.mel_fmin, d.mel_fmax)
+        y_mel = slice_segments(mel, ids[:bsz], seg_frames)
+        wav2 = torch.cat([b["wav"], b["wav"]], dim=0)
+        y_sliced = slice_segments(wav2, ids * hop, seg)  # [2B, seg, 1]
 
-    # -- 3. discriminator step -------------------------------------------------
-    fake = [w.detach() for w in out["wav_hier"]]
-    aug_y, aug_fake = phaseaug_sync(y_sliced, fake[-1], phi=phi_d)
-    y_d_r, y_d_g, _, _ = disc_apply(aug_y, [fake[0], fake[1], aug_fake])
-    loss_disc, r_losses, g_losses = L.discriminator_loss(y_d_r, y_d_g)
-    state.optim_d.zero_grad(set_to_none=True)
-    loss_disc.backward()
-    d_metrics = torch.stack([loss_disc, sum(r_losses), sum(g_losses)]).detach()
-    if ddp:
-        d_metrics = mesh.all_mean(d_metrics)
-    grad_norm_d, skipped_d = apply_update(state.optim_d, state.schedule, d_metrics[0], nan_guard)
+        # -- 3. discriminator step ---------------------------------------------
+        fake = [w.detach() for w in out["wav_hier"]]
+        aug_y, aug_fake = phaseaug_sync(y_sliced, fake[-1], phi=phi_d)
+        y_d_r, y_d_g, _, _ = disc_apply(aug_y, [fake[0], fake[1], aug_fake])
+        loss_disc, r_losses, g_losses = L.discriminator_loss(y_d_r, y_d_g)
+    with span("train.d_backward"):
+        state.optim_d.zero_grad(set_to_none=True)
+        loss_disc.backward()
+    with span("train.d_update"):
+        d_metrics = torch.stack([loss_disc, sum(r_losses), sum(g_losses)]).detach()
+        if ddp:
+            d_metrics = mesh.all_mean(d_metrics)
+        grad_norm_d, skipped_d = apply_update(state.optim_d, state.schedule, d_metrics[0],
+                                              nan_guard)
 
     # -- 4. generator step against the updated D -------------------------------
     # D stays frozen through the backward: a checkpointed D replays there
     wav_hier = out["wav_hier"]
     c = hps.train
     with frozen(disc):
-        aug_y, aug_hat = phaseaug_sync(y_sliced, wav_hier[-1], phi=phi_g)
-        y_d_r, y_d_g, fmap_r, fmap_g = frozen_disc_apply(
-            aug_y, [wav_hier[0], wav_hier[1], aug_hat])
-        y_hat_mel = mel_spectrogram(wav_hier[-1][:bsz, :, 0], d.filter_length, d.n_mel_channels,
-                                    d.sampling_rate, hop, d.win_length, d.mel_fmin, d.mel_fmax)
-        yin_gt_crop_sliced = slice_segments(
-            torch.cat([out["yin_gt_crop"], out["yin_gt_shifted_crop"]], dim=0), ids, seg_frames
-        )
-        loss_dur = torch.sum(out["l_length"].float())
-        loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * c.c_mel
-        z_total = ratio_denominator(out["z_mask"].sum()) if ddp else None
-        loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                            out["z_mask"], z_total) * c.c_kl
-        loss_yin_dec = (
-            torch.mean(torch.abs(out["yin_gt_shifted_crop"] - out["yin_dec_crop"])) * c.c_yin
-        )
-        loss_yin_shift = (
-            torch.mean(torch.abs(torch.exp(-yin_gt_crop_sliced) - torch.exp(-out["yin_hat_crop"])))
-            * c.c_yin
-            + torch.mean(torch.abs(torch.exp(-out["yin_hat_shifted"])
-                                   - torch.exp(-out["yin_hat_crop"][bsz:]))) * c.c_yin
-        )
-        loss_fm = L.feature_loss(fmap_r, fmap_g)
-        loss_gen, _ = L.generator_loss(y_d_g)
-        loss_total = (loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_yin_shift
-                      + loss_yin_dec)
-        state.optim_g.zero_grad(set_to_none=True)
-        loss_total.backward()
-    g_metrics = torch.stack([loss_gen, loss_fm, loss_mel, loss_dur, loss_kl, loss_yin_dec,
-                             loss_yin_shift, loss_total]).detach()
-    if ddp:
-        g_metrics = mesh.all_mean(g_metrics)
-    grad_norm_g, skipped_g = apply_update(state.optim_g, state.schedule, g_metrics[-1], nan_guard)
+        with span("train.g_loss"):
+            aug_y, aug_hat = phaseaug_sync(y_sliced, wav_hier[-1], phi=phi_g)
+            y_d_r, y_d_g, fmap_r, fmap_g = frozen_disc_apply(
+                aug_y, [wav_hier[0], wav_hier[1], aug_hat])
+            y_hat_mel = mel_spectrogram(wav_hier[-1][:bsz, :, 0], d.filter_length,
+                                        d.n_mel_channels, d.sampling_rate, hop, d.win_length,
+                                        d.mel_fmin, d.mel_fmax)
+            yin_gt_crop_sliced = slice_segments(
+                torch.cat([out["yin_gt_crop"], out["yin_gt_shifted_crop"]], dim=0), ids,
+                seg_frames)
+            loss_dur = torch.sum(out["l_length"].float())
+            loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * c.c_mel
+            z_total = ratio_denominator(out["z_mask"].sum()) if ddp else None
+            loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
+                                out["z_mask"], z_total) * c.c_kl
+            loss_yin_dec = (
+                torch.mean(torch.abs(out["yin_gt_shifted_crop"] - out["yin_dec_crop"])) * c.c_yin
+            )
+            loss_yin_shift = (
+                torch.mean(torch.abs(torch.exp(-yin_gt_crop_sliced)
+                                     - torch.exp(-out["yin_hat_crop"]))) * c.c_yin
+                + torch.mean(torch.abs(torch.exp(-out["yin_hat_shifted"])
+                                       - torch.exp(-out["yin_hat_crop"][bsz:]))) * c.c_yin
+            )
+            loss_fm = L.feature_loss(fmap_r, fmap_g)
+            loss_gen, _ = L.generator_loss(y_d_g)
+            loss_total = (loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_yin_shift
+                          + loss_yin_dec)
+        with span("train.g_backward"):
+            state.optim_g.zero_grad(set_to_none=True)
+            loss_total.backward()
+    with span("train.g_update"):
+        g_metrics = torch.stack([loss_gen, loss_fm, loss_mel, loss_dur, loss_kl, loss_yin_dec,
+                                 loss_yin_shift, loss_total]).detach()
+        if ddp:
+            g_metrics = mesh.all_mean(g_metrics)
+        grad_norm_g, skipped_g = apply_update(state.optim_g, state.schedule, g_metrics[-1],
+                                              nan_guard)
     state.step += 1
 
     names = ("score", "fm", "mel", "dur", "kl", "yindec", "yinshift", "total")
