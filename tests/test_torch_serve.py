@@ -496,3 +496,75 @@ def test_engine_loads_a_saved_state_dict(engines, cfg_path, tmp_path):
     b = loaded.synthesize("[P]ni3#hao3[P]", 1, seed=6)[1][1]
     np.testing.assert_array_equal(a, b)
     assert not loaded.model.training
+
+
+@pytest.mark.parametrize("shift", [-15, 0, 15])
+@pytest.mark.parametrize("duration", [0.8, 1.0, 1.3])
+def test_segment_controls_as_tensors_equal_scalars(engines, shift, duration):
+    """``_synth_segment`` hands ``model.infer`` the duration and the scope
+    shift as [1] tensors on the engine's device (a batch row's form, which a
+    CUDA graph takes as inputs); each call gives, bit for bit, what the same
+    call with the scalar forms gives, and the segment's audio is the scalar
+    call's."""
+    _, _, own, _ = engines
+    model = own.model
+    original = model.infer
+    calls = []
+
+    def infer(*args, **kwargs):
+        out = original(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    model.infer = infer
+    try:
+        seq, lang, _ = own.get_phoneme(TEXTS[3])
+        audio = own._synth_segment(seq, lang, 1, 7, shift, duration)
+    finally:
+        del model.infer
+    assert calls
+    with torch.inference_mode():
+        for args, kwargs, (wav, _, y_len) in calls:
+            for v in (kwargs["length_scale"], kwargs["scope_shift"]):
+                assert isinstance(v, torch.Tensor) and v.shape == (1,) and v.device == own.device
+            wav_s, _, y_len_s = original(*args, **dict(kwargs, length_scale=duration,
+                                                       scope_shift=shift))
+            assert torch.equal(y_len, y_len_s)
+            assert torch.equal(wav, wav_s)
+    np.testing.assert_array_equal(audio, wav_s[0, : int(y_len_s[0]) * own.hop, 0].numpy())
+
+
+@pytest.mark.parametrize("case", ["split", "escalating"])
+def test_wrapped_infer_sees_every_budgeted_call(engines, case, monkeypatch):
+    """``engine.model.infer`` wrapped as the benchmark wraps it sees exactly
+    the calls the counter ``serve.infer_calls`` counts, for a paragraph
+    split into pieces and for a piece whose frame budget escalates; on the
+    CPU no call is graphed (the graph counters stay 0, the model has no
+    cache)."""
+    from perfbench import tracing
+    from vits_torch.utils import profiling
+
+    _, _, own, _ = engines
+    if case == "escalating":
+        monkeypatch.setattr(own, "FRAME_BUCKETS", (4, 8))
+        monkeypatch.setattr(own, "_first_frames", lambda n, duration: 4)
+    spans = tracing.Spans()
+    undo = tracing.wrap(own.model, "infer", "infer", spans)
+    profiling.reset()
+    was = profiling.set_tracing(True)
+    try:
+        own.synthesize(LONG if case == "split" else TEXTS[0], 0, seed=5)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset()
+        undo()
+    assert spans.count("infer") == counters["serve.infer_calls"]
+    if case == "split":
+        assert counters["serve.infer_calls"] == len(own._split_segments(
+            *own.get_phoneme(LONG)[:2], own.TEXT_BUCKETS[-1])) > 1
+        assert "serve.escalations" not in counters
+    else:
+        assert counters["serve.escalations"] == 2 and counters["serve.infer_calls"] == 3
+    assert counters.get("serve.graph_captures", 0) == counters.get("serve.graph_replays", 0) == 0
+    assert own.model.infer_graphs is None

@@ -8,7 +8,8 @@ Every entry point of the JAX model is ported here:
     expansion -> random slice (one offset per half-batch) -> hierarchical
     decode -> yingram of the output.
   * ``infer``: ``infer_pre_decoder`` (text encoder, SDP reverse,
-    ``_expand_and_flow``) then ``infer_decode_chunk``.
+    ``_expand_and_flow``) then ``infer_decode_chunk``; on the card, replayed
+    from the serving engine's CUDA graphs (``infer_graphs``) where it sets them.
   * the staged latency-control API: ``infer_pre_lr`` (text encoder, SDP
     reverse), ``infer_lr`` (length regulation), ``infer_post_lr_pre_decoder``
     (prior sample, reverse flow, scope crop), then ``infer_decode_chunk``.
@@ -89,6 +90,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 class SynthesizerTrn(nn.Module):
+    # the serving engine's graph cache (``serve/graphs.py::InferGraphs``);
+    # None, the default, runs every ``infer`` eagerly
+    infer_graphs = None
+
     def __init__(
         self,
         num_chars,
@@ -441,7 +446,23 @@ class SynthesizerTrn(nn.Module):
         noise_scale_w: float = 0.8, max_frames: int = 2000, scope_shift: int = 0,
     ):
         """Text -> (waveform [B, max_frames * hop, 1], y_mask [B, max_frames,
-        1], y_lengths [B])."""
+        1], y_lengths [B]). With ``infer_graphs`` set, a call it takes is
+        replayed from a CUDA graph of this call at its shape."""
+        graphs = self.infer_graphs
+        if graphs is not None and graphs.takes(x, noise, generator, length_scale, scope_shift):
+            return graphs(self._infer, x, t, x_lengths, sid, noise, length_scale, scope_shift,
+                          noise_scale=noise_scale, noise_scale_w=noise_scale_w,
+                          max_frames=max_frames)
+        return self._infer(
+            x, t, x_lengths, sid, noise=noise, generator=generator, noise_scale=noise_scale,
+            length_scale=length_scale, noise_scale_w=noise_scale_w, max_frames=max_frames,
+            scope_shift=scope_shift,
+        )
+
+    def _infer(
+        self, x, t, x_lengths, sid, *, noise, noise_scale, length_scale, noise_scale_w,
+        max_frames, scope_shift, generator=None,
+    ):
         dec_in, y_mask, y_lengths, _, g = self._pre_decoder(
             x, t, x_lengths, sid, noise, generator, noise_scale, length_scale,
             noise_scale_w, max_frames, scope_shift,

@@ -32,9 +32,14 @@ returned: an escalated call's frames, and a saturated batch row's, are all
 decoded and none kept).
 
 Every call runs under ``torch.inference_mode()`` on the engine's device:
-``cuda`` unless ``device`` names another. ``enable_persistent_cache`` of the
-JAX engine (XLA's compile cache) has no counterpart: eager PyTorch compiles
-nothing.
+``cuda`` unless ``device`` names another. On a CUDA device the budgeted calls
+(``synthesize``'s pieces, ``synthesize_batch``'s groups) are replayed from
+CUDA graphs captured at each (rows, text bucket, frame bucket) on its first
+use (``serve/graphs.py``; counters ``serve.graph_captures`` and
+``serve.graph_replays``); duration and scope shift go in as [rows] tensors,
+so one graph serves them all. Elsewhere every call runs eagerly.
+``enable_persistent_cache`` of the JAX engine (XLA's compile cache) has no
+counterpart: eager PyTorch compiles nothing.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from torch.nn import functional as F
 from vits_torch.config import load_hparams
 from vits_torch.models.synthesizer import build_synthesizer, resolve_device
 from vits_torch.ops.commons import intersperse_with_language_id
+from vits_torch.serve.graphs import InferGraphs
 from vits_torch.text import cleaned_text_to_sequence
 from vits_torch.text.cleaners import clean_text
 from vits_torch.text.symbols import symbols
@@ -105,6 +111,8 @@ class TTSEngine:
         if checkpoint_path is not None:
             self.model.load_state_dict(load_eval_params(checkpoint_path, self.device))
         self.model.eval()
+        if self.device.type == "cuda":
+            self.model.infer_graphs = InferGraphs()
         self.max_frames = max_frames
         self.sampling_rate = self.hps.data.sampling_rate
         self.hop = self.hps.data.hop_length
@@ -204,6 +212,9 @@ class TTSEngine:
         FRAME_BUCKETS when the predicted length hits the current budget."""
         tx, x, t, xl = self._text_row(seq, lang)
         sid = torch.tensor([speaker_id], device=self.device)
+        # [1] tensors, as a batch row's: no host value is baked into a call
+        controls = (torch.tensor([float(duration)], device=self.device),
+                    torch.tensor([int(scope_shift)], device=self.device))
         buckets = self._frame_buckets()
         frames = self._first_frames(len(seq), duration)
         while True:
@@ -211,7 +222,7 @@ class TTSEngine:
                 noise = self._noise([seed], self._synth_shapes(tx, frames))
             with span("serve.infer"):
                 wav, _, y_len = self.model.infer(
-                    x, t, xl, sid, noise=noise, **self._infer_kwargs(duration, scope_shift, frames)
+                    x, t, xl, sid, noise=noise, **self._infer_kwargs(*controls, frames)
                 )
             with span("serve.sync"):
                 y_len = int(y_len[0])  # host sync: the budget decision needs it
@@ -303,9 +314,10 @@ class TTSEngine:
             with span("serve.noise"):
                 noise = self._noise(seeds, self._synth_shapes(tx, frames))
             with span("serve.infer"):
+                x_, t_, xl_, sid_, durs_, shifts_ = (torch.from_numpy(a).to(dev)
+                                                      for a in (x, t, xl, sid, durs, shifts))
                 wavs, _, y_lens = self.model.infer(
-                    *(torch.from_numpy(a).to(dev) for a in (x, t, xl, sid)), noise=noise,
-                    **self._infer_kwargs(torch.from_numpy(durs), torch.from_numpy(shifts), frames),
+                    x_, t_, xl_, sid_, noise=noise, **self._infer_kwargs(durs_, shifts_, frames),
                 )
             with span("serve.sync"):
                 y_lens = y_lens.cpu().numpy()
