@@ -2,10 +2,10 @@
 """Where the time goes in the port's slice on one NVIDIA card.
 
 Runs vits_torch's SynthesizerTrn at the full width and depth of
-configs/config_cje.yaml (random weights from --seed) on the same synthetic
-batch as chip_smoke.py, and reports for the training forward (B=16 x 400
-frames, no_grad, train mode) and for infer at batch 1 and 8
-(max_frames=1000):
+configs/config_cje.yaml, or of --config (random weights from --seed), on the
+same synthetic batch as chip_smoke.py, and reports for the training forward
+(B=16 x 400 frames, no_grad, train mode; not for a model without the pitch
+path) and for infer at batch 1 and 8 (max_frames=1000):
 
   * wall time (host clock around synchronized runs, mean of --iters);
   * device time per top-level submodule, from CUDA events recorded around
@@ -13,7 +13,11 @@ frames, no_grad, train mode) and for infer at batch 1 and 8
     yingram, glue);
   * kernel time by name and the device's idle share over one profiled run
     (torch.profiler; idle = 1 - the union of kernel, copy and memset
-    intervals / the run's wall time).
+    intervals / the run's wall time);
+  * for each of the port's spans open in that run (utils/profiling.py:
+    ``vits.decode`` around the decoder, ``vits.decode.istft`` around an
+    iSTFT decoder's head), the device time of the kernels launched while it
+    was the innermost span, its host time and the device's idle time in it.
 
 With --train it profiles training/step.py::train_step instead (the CJE
 generator and the flagship Avocodo discriminator, B=16 x 400 frames,
@@ -24,7 +28,7 @@ time of the kernels launched in it, its host time and the device's idle
 time while it was open (``reduce_spans``, below), kernel time by name and
 the idle share.
 
-    python3 tools/profile_torch_slice.py [--seed N] [--iters N] [--train]
+    python3 tools/profile_torch_slice.py [--seed N] [--iters N] [--train] [--config PATH]
 
 Needs a CUDA device. Every line carries the card's name and power limit.
 """
@@ -263,6 +267,9 @@ def report(card, label, model, fn, iters):
           f"{total:.3f} ms; {run_line(kernels, run)}")
     for name, t in sorted(per_module.items(), key=lambda kv: -kv[1]):
         print(f"{card} | {label}   module {name}: {t:.3f} ms ({100 * t / total:.1f}%)")
+    for name, sp in sorted(run["spans"].items(), key=lambda kv: -kv[1]["device_s"]):
+        print(f"{card} | {label}   span {name}: device {sp['device_s'] * 1e3:.3f} ms (innermost), "
+              f"host {sp['host_s'] * 1e3:.3f} ms, device idle {sp['idle_s'] * 1e3:.3f} ms")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{card} | {label}   kernel {us / 1e3:.3f} ms ({100 * us / 1e3 / busy:.1f}%) "
               f"{name[:110]}")
@@ -334,6 +341,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="profile the GAN train step")
+    ap.add_argument("--config", default=str(ROOT / "configs" / "config_cje.yaml"),
+                    help="the model's configuration (YAML or JSON)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
@@ -344,10 +353,14 @@ def main() -> int:
     from vits_torch.utils.profiling import card_name
 
     card = card_name()
-    hps = load_hparams(str(ROOT / "configs" / "config_cje.yaml"))
+    hps = load_hparams(args.config)
+    pitch = str(hps.model.get("pitch", "yingram")) != "none"
+    if args.train and not pitch:
+        print("profile_torch_slice: --train needs a model with the pitch path", file=sys.stderr)
+        return 2
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda")
-    b = chip_smoke.synthetic_batch(hps, rng, dev)
+    b = chip_smoke.synthetic_batch(hps, rng, dev) if pitch else None
     if args.train:
         for bf16 in (True, False):
             report_train(card, hps, b, args.seed, args.iters, bf16)
@@ -356,17 +369,19 @@ def main() -> int:
     model = build_synthesizer(hps)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
-    model.train()
-    with torch.no_grad():
-        report(card, "forward B=16 T_y=400", model,
-               lambda: model(b["x"], b["t"], b["x_lengths"], b["y"], b["y_lengths"],
-                             b["ying"], b["sid"], generator=gen), args.iters)
+    if pitch:
+        model.train()
+        with torch.no_grad():
+            report(card, "forward B=16 T_y=400", model,
+                   lambda: model(b["x"], b["t"], b["x_lengths"], b["y"], b["y_lengths"],
+                                 b["ying"], b["sid"], generator=gen), args.iters)
     model.eval()
     for bsz in (1, 8):
         x = torch.from_numpy(rng.integers(1, len(symbols), (bsz, 191))).to(dev)
         t = torch.from_numpy(rng.integers(0, 6, (bsz, 191))).to(dev)
         xl = torch.from_numpy(np.full(bsz, 191) if bsz == 1 else rng.integers(129, 192, bsz)).to(dev)
-        sid = torch.from_numpy(rng.integers(0, len(hps.data.speakers), bsz)).to(dev)
+        sid = (torch.from_numpy(rng.integers(0, len(hps.data.speakers), bsz)).to(dev)
+               if hps.data.speakers else None)
         with torch.no_grad():
             report(card, f"infer batch {bsz}", model,
                    lambda: model.infer(x, t, xl, sid, generator=gen, max_frames=1000),

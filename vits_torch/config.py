@@ -77,14 +77,29 @@ def get_hparams(config_path: str, model_dir: str) -> HParams:
 
 def synthesizer_kwargs(hps: HParams, num_chars: int) -> dict:
     """Map config sections onto SynthesizerTrn fields (reference
-    train.py:142-153 builds the model from data+model config)."""
+    train.py:142-153 builds the model from data+model config).
+
+    The model keys ``decoder`` (``hifigan`` | ``mb_istft``, with
+    ``subbands``, ``gen_istft_n_fft``, ``gen_istft_hop_size``), ``pitch``
+    (``yingram`` | ``none``) and ``language_embedding`` default to the
+    PITS model; with ``pitch: none`` the Yingram and yin keys may be left
+    out, and an empty speaker list builds a single-speaker model (no
+    speaker embedding, ``gin_channels`` 0)."""
+    m, d = hps.model, hps.data
+    pitch = str(m.get("pitch", "yingram"))
+    if pitch == "none":  # the pitch path's keys, unread without it
+        yin = dict.fromkeys(("midi_start", "midi_end", "octave_range", "yin_channels",
+                             "yin_start", "yin_scope", "yin_shift_range"), 0)
+    else:
+        yin = dict(midi_start=d.midi_start, midi_end=d.midi_end, octave_range=d.octave_range,
+                   yin_channels=m.yin_channels, yin_start=m.yin_start, yin_scope=m.yin_scope,
+                   yin_shift_range=m.yin_shift_range)
+    n_speakers = len(d.speakers)
     return dict(
         num_chars=num_chars,
         spec_channels=hps.data.filter_length // 2 + 1,
         segment_size=hps.train.segment_size,
-        midi_start=hps.data.midi_start,
-        midi_end=hps.data.midi_end,
-        octave_range=hps.data.octave_range,
+        **yin,
         inter_channels=hps.model.inter_channels,
         hidden_channels=hps.model.hidden_channels,
         filter_channels=hps.model.filter_channels,
@@ -98,12 +113,8 @@ def synthesizer_kwargs(hps: HParams, num_chars: int) -> dict:
         upsample_rates=hps.model.upsample_rates,
         upsample_initial_channel=hps.model.upsample_initial_channel,
         upsample_kernel_sizes=hps.model.upsample_kernel_sizes,
-        yin_channels=hps.model.yin_channels,
-        yin_start=hps.model.yin_start,
-        yin_scope=hps.model.yin_scope,
-        yin_shift_range=hps.model.yin_shift_range,
-        n_speakers=len(hps.data.speakers),
-        gin_channels=hps.model.gin_channels,
+        n_speakers=n_speakers,
+        gin_channels=m.gin_channels if n_speakers else 0,
         sampling_rate=hps.data.sampling_rate,
         filter_length=hps.data.filter_length,
         hop_length=hps.data.hop_length,
@@ -115,4 +126,10 @@ def synthesizer_kwargs(hps: HParams, num_chars: int) -> dict:
         flow_wn_layers=int(hps.model.get("flow_wn_layers", 4)),
         dur_n_flows=int(hps.model.get("dur_n_flows", 4)),
         yin_dec_layers=int(hps.model.get("yin_dec_layers", 4)),
+        decoder=str(m.get("decoder", "hifigan")),
+        subbands=int(m.get("subbands", 4)),
+        gen_istft_n_fft=int(m.get("gen_istft_n_fft", 16)),
+        gen_istft_hop_size=int(m.get("gen_istft_hop_size", 4)),
+        pitch=pitch,
+        language_embedding=bool(m.get("language_embedding", True)),
     )

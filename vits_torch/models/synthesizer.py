@@ -43,6 +43,20 @@ Dropout follows ``train()``/``eval()``, as the JAX ``deterministic`` flag.
 encoders' WaveNet stacks and the HiFi-GAN decoder compute in bfloat16;
 parameters, stats, flows, MAS, the duration predictor, sampling and every
 loss-facing tensor stay f32.
+
+Other models of the VITS family, by three switches whose defaults build the
+model above: ``decoder="mb_istft"`` (MB-iSTFT-VITS's multi-band iSTFT
+generator, ``models/istft_generator.py``, with ``subbands``,
+``gen_istft_n_fft`` and ``gen_istft_hop_size``), ``pitch="none"`` (no pitch
+posterior, yin decoder or Yingram: the decoder takes all of z and
+``scope_shift`` is unread) and ``language_embedding=False`` (no ``emb_t``).
+A pitchless model serves (``infer``, the staged API, ``infer_decode_chunk``);
+``forward``, ``draw_noise``, ``yin_dec_infer`` and ``voice_conversion``
+need the pitch path, and training the HiFi-GAN decoder (``hier_forward``):
+elsewhere they raise.
+
+Spans (``utils/profiling.py``): ``vits.decode`` around the decoder call of
+``infer`` and ``infer_decode_chunk``.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from vits_torch.config import HParams, synthesizer_kwargs
 from vits_torch.models.duration import StochasticDurationPredictor
 from vits_torch.models.flows import ResidualCouplingBlock
 from vits_torch.models.hifigan import HiFiGANGenerator
+from vits_torch.models.istft_generator import MultiBandISTFTGenerator
 from vits_torch.models.modules import embedding
 from vits_torch.models.posterior_encoder import PosteriorEncoder
 from vits_torch.models.text_encoder import TextEncoder
@@ -71,6 +86,7 @@ from vits_torch.ops.commons import (
 from vits_torch.ops.mas import maximum_path
 from vits_torch.ops.yin import Yingram
 from vits_torch.text.symbols import symbols
+from vits_torch.utils.profiling import span
 
 
 # the draws of one ``forward`` (see the module docstring)
@@ -129,11 +145,24 @@ class SynthesizerTrn(nn.Module):
         flow_wn_layers=4,
         dur_n_flows=4,
         yin_dec_layers=4,
+        decoder="hifigan",
+        subbands=4,
+        gen_istft_n_fft=16,
+        gen_istft_hop_size=4,
+        pitch="yingram",
+        language_embedding=True,
         bf16=False,
         device=None,
     ):
         super().__init__()
         device = resolve_device(device)
+        if decoder not in ("hifigan", "mb_istft") or pitch not in ("yingram", "none"):
+            raise ValueError(f"unknown decoder {decoder!r} or pitch {pitch!r}: decoder is "
+                             "'hifigan' or 'mb_istft', pitch 'yingram' or 'none'")
+        self.decoder = decoder
+        self.has_pitch = pitch != "none"
+        if not self.has_pitch:
+            yin_channels = yin_scope = 0
         self.segment_size = segment_size
         self.inter_channels = inter_channels
         self.yin_channels = yin_channels
@@ -146,21 +175,32 @@ class SynthesizerTrn(nn.Module):
 
         self.text_encoder = TextEncoder(
             num_chars, inter_channels, hidden_channels, filter_channels, n_heads,
-            n_layers, kernel_size, p_dropout,
+            n_layers, kernel_size, p_dropout, language_embedding=language_embedding,
         )
-        self.waveform_decoder = HiFiGANGenerator(
-            spec_ch + yin_scope, resblock, resblock_kernel_sizes,
-            resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
-            upsample_kernel_sizes, gin_channels=gin_channels, bf16=bf16,
-        )
+        if decoder == "hifigan":
+            self.waveform_decoder = HiFiGANGenerator(
+                spec_ch + yin_scope, resblock, resblock_kernel_sizes,
+                resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
+                upsample_kernel_sizes, gin_channels=gin_channels, bf16=bf16,
+            )
+        else:
+            self.waveform_decoder = MultiBandISTFTGenerator(
+                spec_ch + yin_scope, resblock_kernel_sizes, resblock_dilation_sizes,
+                upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
+                subbands, gen_istft_n_fft, gen_istft_hop_size, gin_channels=gin_channels,
+                bf16=bf16,
+            )
+        # PITS's spec posterior is as wide as its share of z; VITS's (no
+        # pitch) has the model's hidden width
         self.posterior_encoder = PosteriorEncoder(
-            spec_channels, spec_ch, spec_ch, 5, 1, posterior_layers,
-            gin_channels=gin_channels, bf16=bf16,
+            spec_channels, spec_ch, spec_ch if self.has_pitch else hidden_channels, 5, 1,
+            posterior_layers, gin_channels=gin_channels, bf16=bf16,
         )
-        self.pitch_encoder = PosteriorEncoder(
-            yin_channels, yin_channels, yin_channels, 5, 1, posterior_layers,
-            gin_channels=gin_channels, bf16=bf16,
-        )
+        if self.has_pitch:
+            self.pitch_encoder = PosteriorEncoder(
+                yin_channels, yin_channels, yin_channels, 5, 1, posterior_layers,
+                gin_channels=gin_channels, bf16=bf16,
+            )
         self.flow = ResidualCouplingBlock(
             inter_channels, hidden_channels, 5, 1, flow_wn_layers, n_flows=flow_n_flows,
             gin_channels=gin_channels,
@@ -168,16 +208,17 @@ class SynthesizerTrn(nn.Module):
         self.duration_predictor = StochasticDurationPredictor(
             hidden_channels, 192, 3, 0.5, dur_n_flows, gin_channels=gin_channels
         )
-        self.yin_decoder = YingDecoder(
-            yin_scope, 5, 1, yin_dec_layers, yin_start, yin_scope, yin_shift_range,
-            gin_channels=gin_channels,
-        )
+        if self.has_pitch:
+            self.yin_decoder = YingDecoder(
+                yin_scope, 5, 1, yin_dec_layers, yin_start, yin_scope, yin_shift_range,
+                gin_channels=gin_channels,
+            )
+            self.pitch = Yingram(
+                sr=sampling_rate, w_step=hop_length, w_size=2048, tau_max=2048,
+                midi_start=midi_start, midi_end=midi_end, octave_range=octave_range,
+            )
         if n_speakers > 0:
             self.emb_g = embedding(n_speakers, gin_channels)
-        self.pitch = Yingram(
-            sr=sampling_rate, w_step=hop_length, w_size=2048, tau_max=2048,
-            midi_start=midi_start, midi_end=midi_end, octave_range=octave_range,
-        )
         self.to(device)
 
     # -- helpers ---------------------------------------------------------
@@ -190,6 +231,15 @@ class SynthesizerTrn(nn.Module):
         if self.n_speakers > 0:
             return self.emb_g(sid).unsqueeze(-1)  # [B, gin, 1]
         return None
+
+    def _needs_pitch(self, what: str, training: bool = False) -> None:
+        """Raises where ``what`` needs what this model lacks: the pitch path,
+        or (``training``) the HiFi-GAN decoder's ``hier_forward``."""
+        if not self.has_pitch:
+            raise ValueError(f"{what} needs the pitch path; this model has none (pitch: none)")
+        if training and self.decoder != "hifigan":
+            raise ValueError(f"{what} trains the HiFi-GAN decoder; this model's decoder is "
+                             f"{self.decoder!r}")
 
     def _crop0(self, x, scope_shift=0, dim=1):
         """Scope crop of channels ``yin_start + scope_shift`` onwards, the
@@ -227,6 +277,7 @@ class SynthesizerTrn(nn.Module):
         """Every draw of one ``forward`` at batch b, up front (JAX layout):
         what ``forward(noise=...)`` takes, so that a replay of the forward
         (``torch.utils.checkpoint``) sees the same numbers."""
+        self._needs_pitch("draw_noise", training=True)
         spec_ch = self.inter_channels - self.yin_channels
         return {
             "eps_spec": self._noise(None, "", (b, t_y, spec_ch), generator),
@@ -247,6 +298,7 @@ class SynthesizerTrn(nn.Module):
         [B]. Returns the JAX ``__call__`` dict, every tensor channels-last.
         ``l_length`` is divided by ``x_mask_total`` where it is given (a
         data-parallel step's shared denominator), else by ``sum(x_mask)``."""
+        self._needs_pitch("forward", training=True)
         b, t_x = x.shape
         t_y = y.shape[1]
         spec_ch = self.inter_channels - self.yin_channels
@@ -408,9 +460,12 @@ class SynthesizerTrn(nn.Module):
         """Prior sample + reverse flow + scope crop, NCL in and out."""
         z_p = m_p + eps * torch.exp(logs_p) * noise_scale
         z = self.flow(z_p, y_mask, g=g, reverse=True)
-        spec_ch = self.inter_channels - self.yin_channels
-        z_spec, z_yin = z[:, :spec_ch], z[:, spec_ch:]
-        z_crop = torch.cat([z_spec, self._crop0(z_yin, scope_shift)], dim=1)
+        if self.has_pitch:
+            spec_ch = self.inter_channels - self.yin_channels
+            z_spec, z_yin = z[:, :spec_ch], z[:, spec_ch:]
+            z_crop = torch.cat([z_spec, self._crop0(z_yin, scope_shift)], dim=1)
+        else:
+            z_crop = z
         return z_crop * y_mask, y_mask, (z_crop, z, z_p, m_p, logs_p)
 
     def _expand_and_flow(
@@ -438,7 +493,8 @@ class SynthesizerTrn(nn.Module):
     def infer_decode_chunk(self, decoder_inputs, sid=None):
         """Decoder only: [B, T, C] -> waveform [B, T * hop, 1]."""
         g = self._speaker_embedding(sid)
-        return self.waveform_decoder(decoder_inputs.transpose(1, 2), g=g).transpose(1, 2)
+        with span("decode"):
+            return self.waveform_decoder(decoder_inputs.transpose(1, 2), g=g).transpose(1, 2)
 
     def infer(
         self, x, t, x_lengths, sid=None, *, noise=None, generator=None,
@@ -467,7 +523,8 @@ class SynthesizerTrn(nn.Module):
             x, t, x_lengths, sid, noise, generator, noise_scale, length_scale,
             noise_scale_w, max_frames, scope_shift,
         )
-        wav = self.waveform_decoder(dec_in, g=g)
+        with span("decode"):
+            wav = self.waveform_decoder(dec_in, g=g)
         return wav.transpose(1, 2), y_mask.transpose(1, 2), y_lengths
 
     # -- staged latency-control API ----------------------------------------
@@ -513,6 +570,7 @@ class SynthesizerTrn(nn.Module):
     def yin_dec_infer(self, z_yin, z_mask, sid=None, *, noise=None, generator=None):
         """Yin decoder reconstruction at a random scope shift (evaluation):
         z_yin [B, T, C_yin], z_mask [B, T, 1] -> [B, T, yin_scope]."""
+        self._needs_pitch("yin_dec_infer")
         out = self.yin_decoder.infer(
             z_yin.transpose(1, 2), z_mask.transpose(1, 2), self._speaker_embedding(sid),
             shift=None if noise is None else noise.get("scope_shift"), generator=generator,
@@ -527,6 +585,7 @@ class SynthesizerTrn(nn.Module):
         posteriors (spec + yin) feed the flow, the decoder input is
         scope-cropped as in inference. y: [B, T, spec]; ying: [B, T, yin] ->
         (waveform [B, T * hop, 1], y_mask [B, T, 1], (z, z_p, z_hat))."""
+        self._needs_pitch("voice_conversion")
         if self.n_speakers <= 0:
             raise ValueError("voice conversion needs a multi-speaker model (n_speakers > 0)")
         b, t_y = y.shape[:2]

@@ -151,3 +151,76 @@ def mel_spectrogram(
     """Waveform [B, T] -> log-mel [B, T', n_mels]."""
     spec = spectrogram(y, n_fft, hop_size, win_size)
     return spec_to_mel(spec, n_fft, num_mels, sampling_rate, fmin, fmax)
+
+
+# -- inverse STFT: a real inverse-DFT basis product and overlap-add ------------
+
+
+@functools.lru_cache(maxsize=None)
+def _hann(n: int) -> np.ndarray:
+    """Periodic Hann window of n samples (``torch.hann_window(n)``), f64."""
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
+
+
+@functools.lru_cache(maxsize=None)
+def _idft_basis(n_fft: int) -> np.ndarray:
+    """Windowed real inverse-DFT basis [2 * (1 + n_fft // 2), n_fft], f32:
+    row k takes Re X_k, row 1 + n_fft // 2 + k takes Im X_k, to a frame's
+    samples times the window. A onesided inverse, as ``torch.istft``'s
+    ``irfft``: the other bins are the conjugates (weight 2, the DC and
+    Nyquist bins 1) and the imaginary parts of the DC and Nyquist bins are
+    dropped."""
+    n_freqs = 1 + n_fft // 2
+    k = np.arange(n_freqs)[:, None]
+    ang = 2.0 * np.pi * k * np.arange(n_fft)[None, :] / n_fft
+    edge = (k == 0) | (2 * k == n_fft)
+    weight = np.where(edge, 1.0, 2.0) / n_fft
+    basis = np.concatenate([weight * np.cos(ang), np.where(edge, 0.0, -weight * np.sin(ang))])
+    return (basis * _hann(n_fft)[None, :]).astype(np.float32)
+
+
+class InverseSTFT(torch.nn.Module):
+    """``torch.istft(mag * exp(1j * phase), n_fft, hop, n_fft,
+    torch.hann_window(n_fft), center=True)`` from device work alone, so that
+    a CUDA graph can capture it: ATen's ``istft`` reads the window envelope's
+    smallest value on the host, a read a capture refuses.
+
+    Each frame's samples are one f32 matrix product with the windowed
+    inverse-DFT basis; the frames are overlap-added (``n_fft`` a multiple of
+    ``hop``: ``n_fft // hop`` shifted adds), divided by the overlap-added
+    squared window (the envelope; it depends on the number of frames alone,
+    and is made on the device from the window in the same call) and trimmed
+    by ``n_fft // 2`` at both ends. The basis and the squared window are
+    non-persistent buffers: they follow ``.to(device)`` and stay out of the
+    state dict."""
+
+    def __init__(self, n_fft: int, hop: int):
+        super().__init__()
+        if n_fft % hop != 0:
+            raise ValueError(f"InverseSTFT: n_fft {n_fft} is not a multiple of hop {hop}")
+        self.n_fft, self.hop = n_fft, hop
+        self.register_buffer("basis", torch.from_numpy(_idft_basis(n_fft)), persistent=False)
+        win_sq = (_hann(n_fft) ** 2).astype(np.float32)
+        self.register_buffer("window_sq", torch.from_numpy(win_sq), persistent=False)
+
+    def _overlap_add(self, frames: torch.Tensor) -> torch.Tensor:
+        """[..., F, n_fft] -> [..., hop * (F - 1) + n_fft]: frame f added at
+        sample hop * f."""
+        r = self.n_fft // self.hop
+        *lead, f, _ = frames.shape
+        parts = frames.unflatten(-1, (r, self.hop))  # [..., F, r, hop]
+        out = frames.new_zeros((*lead, f + r - 1, self.hop))
+        for j in range(r):
+            out[..., j: j + f, :] += parts[..., j, :]
+        return out.flatten(-2)
+
+    def forward(self, mag: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+        """mag, phase [..., 1 + n_fft // 2, F] -> audio [..., hop * (F - 1)], f32."""
+        mag, phase = mag.float(), phase.float()
+        spec = torch.cat([mag * torch.cos(phase), mag * torch.sin(phase)], dim=-2)
+        frames = torch.matmul(spec.transpose(-1, -2), self.basis)  # [..., F, n_fft]
+        y = self._overlap_add(frames)
+        env = self._overlap_add(self.window_sq.expand(frames.shape[-2], -1))
+        trim = self.n_fft // 2
+        end = y.shape[-1] - trim
+        return y[..., trim:end] / env[trim:end]

@@ -40,6 +40,10 @@ use (``serve/graphs.py``; counters ``serve.graph_captures`` and
 so one graph serves them all. Elsewhere every call runs eagerly.
 ``enable_persistent_cache`` of the JAX engine (XLA's compile cache) has no
 counterpart: eager PyTorch compiles nothing.
+
+A configuration without a pitch path (``pitch: none``, as MB-iSTFT-VITS) is
+served by ``synthesize``, ``synthesize_batch`` and the chunked and streaming
+paths alike, its scope shift unread; ``voice_conversion`` refuses it.
 """
 
 from __future__ import annotations
@@ -447,7 +451,10 @@ class TTSEngine:
         Input pads up to VC_BUCKETS; the padded tail is masked out via the
         true frame count and trimmed. Audio longer than the largest bucket is
         converted in overlapping bucket-sized windows cross-faded at the
-        seams; nothing is truncated."""
+        seams; nothing is truncated. A model without a pitch path raises."""
+        if not self.model.has_pitch:
+            raise ValueError("voice conversion needs a model with the pitch path; this "
+                             "configuration has none (pitch: none)")
         n = len(wav)
         limit = self.VC_BUCKETS[-1]
         if n <= limit:
