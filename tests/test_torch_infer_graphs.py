@@ -6,7 +6,8 @@ On the card, at the full CJE configuration (``configs/config_cje.yaml``,
 PyTorch's init under a fixed seed, ``max_frames`` 1000): a replay gives the
 eager call's ``wav`` and ``y_lengths`` bit for bit at every batch-1 key
 (4 text buckets x 3 frame buckets, among them every key a long paragraph's
-pieces reach) and for a 4-row ``synthesize_batch``; captures count the
+pieces reach), for a 4-row ``synthesize_batch`` and for paragraphs whose
+pieces go out as calls of 8, 4, 2 and 1 rows; captures count the
 distinct keys and replays the calls after them; weights loaded in place
 after a capture are seen by the next replay; two threads synthesizing at
 once each get their eager audio. The card tests run where there is no JAX:
@@ -30,8 +31,10 @@ from vits_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIG = ROOT / "configs" / "config_cje.yaml"
-PARAGRAPH = "[EN]" + " ".join(
-    ["The quick brown fox jumps over the lazy dog, and the dog sleeps on."] * 9) + "[EN]"
+SENTENCE = "The quick brown fox jumps over the lazy dog, and the dog sleeps on."
+PARAGRAPH = "[EN]" + " ".join([SENTENCE] * 9) + "[EN]"
+# 11 and 4 pieces at (384 ids, 1000 frames): calls of 8 + 2 + 1 and of 4 rows
+BATCHED = ["[EN]" + " ".join([SENTENCE] * k) + "[EN]" for k in (27, 10)]
 SHORT = ["[EN]Hello world.[EN]", "[EN]Good morning.[EN]", "[EN]See you soon.[EN]",
          "[EN]Thank you.[EN]"]
 
@@ -122,6 +125,39 @@ def test_batch_of_four_rows_equals_eager(engine, graphs):
     # three rounds of the same calls; every call of the two graphed ones took the cache
     graphed = counters["serve.graph_captures"] + counters["serve.graph_replays"]
     assert 3 * graphed == 2 * counters["serve.infer_calls"]
+
+
+@pytest.mark.cuda
+def test_paragraph_replays_equal_its_eager_batched_calls(engine, graphs):
+    """A paragraph's pieces go out as batched calls, all queued before one
+    host sync: replayed, its audio is that of the same calls run eagerly, bit
+    for bit; the keys of 8, 4, 2 and 1 rows at (384, 1000) are captured once
+    and replayed after."""
+    keys = []
+    original = engine.model.infer
+
+    def infer(x, *args, **kwargs):
+        keys.append((*x.shape, kwargs["max_frames"]))
+        return original(x, *args, **kwargs)
+
+    engine.model.infer = infer
+    try:
+        graphed = [[engine.synthesize(text, 2, seed=21 + i)[1][1] for i, text in enumerate(BATCHED)]
+                   for _ in range(2)]
+        replayed = list(keys)
+        engine.model.infer_graphs = None
+        eager = [engine.synthesize(text, 2, seed=21 + i)[1][1] for i, text in enumerate(BATCHED)]
+    finally:
+        del engine.model.infer
+    assert {(rows, 384, 1000) for rows in (8, 4, 2, 1)} <= set(replayed)
+    assert len(replayed) == 2 * len(keys[len(replayed):]) == 8  # (8 + 2 + 1) + (4), twice
+    for got in graphed:
+        for a, e in zip(got, eager):
+            np.testing.assert_array_equal(a, e)
+    counters = profiling.snapshot()["counters"]
+    assert counters["serve.graph_captures"] == len(set(replayed))
+    assert counters["serve.graph_replays"] == len(replayed) - len(set(replayed))
+    assert counters["serve.rows"] == 3 * (11 + 4)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX engine, on the CPU: ``TTSEngine``
 (phonemes, buckets, phrase splits, synthesize / chunked / streaming / batch,
 frame-budget escalation, voice conversion), ``DynamicBatcher``, the HTTP API
-and the Gradio app's import guard.
+and the Gradio app's import guard; a paragraph's pieces as batched calls
+against each piece alone, and the reader of ``engine.rows_per_call.long``.
 
 Both engines load ``tests/test_engine.py``'s tiny configuration with
 ``max_frames=96``, one module-scoped engine each. Weights: the JAX engine's
@@ -20,9 +21,12 @@ against PyTorch through the whole generator: audio std ~0.2, max |err|
 """
 
 import base64
+import importlib.util
 import json
 import sys
 import threading
+from collections import Counter
+from pathlib import Path
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -561,10 +565,181 @@ def test_wrapped_infer_sees_every_budgeted_call(engines, case, monkeypatch):
         undo()
     assert spans.count("infer") == counters["serve.infer_calls"]
     if case == "split":
-        assert counters["serve.infer_calls"] == len(own._split_segments(
-            *own.get_phoneme(LONG)[:2], own.TEXT_BUCKETS[-1])) > 1
+        pieces = own._split_segments(*own.get_phoneme(LONG)[:2], own.TEXT_BUCKETS[-1])
+        keys = Counter((own._bucket(len(s)), own._first_frames(len(s), 1.0)) for s, _ in pieces)
+        assert counters["serve.infer_calls"] == sum(map(_bucketed_calls, keys.values()))
+        assert counters["serve.rows"] == len(pieces) > counters["serve.infer_calls"]
         assert "serve.escalations" not in counters
     else:
         assert counters["serve.escalations"] == 2 and counters["serve.infer_calls"] == 3
     assert counters.get("serve.graph_captures", 0) == counters.get("serve.graph_replays", 0) == 0
     assert own.model.infer_graphs is None
+
+
+def _bucketed_calls(n: int) -> int:
+    """The calls of a group of ``n`` rows cut into batch buckets of 8, 4, 2
+    and 1, largest first."""
+    return n // 8 + bin(n % 8).count("1")
+
+
+@pytest.fixture
+def counted():
+    """The port's counters on for the test: ``counted()`` reads what they
+    counted since ``counted.reset()``."""
+    from vits_torch.utils import profiling
+
+    def read():
+        return dict(profiling.snapshot()["counters"])
+
+    read.reset = profiling.reset
+    profiling.reset()
+    was = profiling.set_tracing(True)
+    yield read
+    profiling.set_tracing(was)
+    profiling.reset()
+
+
+def _rows_seen(model, monkeypatch) -> list[int]:
+    """The rows of each ``model.infer`` call from here on."""
+    rows, original = [], model.infer
+
+    def infer(x, *args, **kwargs):
+        rows.append(x.shape[0])
+        return original(x, *args, **kwargs)
+
+    monkeypatch.setattr(model, "infer", infer)
+    return rows
+
+
+def _pieces(engine, text):
+    seq, lang, _ = engine.get_phoneme(text)
+    return engine._split_segments(seq, lang, engine.TEXT_BUCKETS[-1])
+
+
+def _segments(engine, text, speaker, seed, **kw):
+    """``text``'s pieces alone, each through ``_synth_segment``, concatenated."""
+    return np.concatenate([
+        engine._synth_segment(s, la, speaker, seed + i, 0, 1.0, **kw).numpy()
+        for i, (s, la) in enumerate(_pieces(engine, text))])
+
+
+@pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
+def test_long_input_batched_equals_pieces_alone(engines, which, counted, monkeypatch):
+    """A paragraph's pieces run as batched calls (LONG: 4 pieces at one key,
+    one call of 4 rows) give the audio of each piece alone at batch 1,
+    concatenated: lengths exact, audio within TOL."""
+    _, port, own, _ = engines
+    eng = port if which == "jax_noise" else own
+    want = _segments(eng, LONG, 1, 3)
+    rows = _rows_seen(eng.model, monkeypatch)
+    counted.reset()
+    _, (_, got) = eng.synthesize(LONG, 1, seed=3)
+    assert rows == [4] and counted()["serve.rows"] == 4
+    assert len(got) == len(want)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("text", TEXTS)
+def test_one_piece_is_one_call_at_one_row(engines, text, counted, monkeypatch):
+    """A text of one piece makes one call at one row, and its audio is
+    ``_synth_segment``'s bit for bit."""
+    _, _, own, _ = engines
+    want = _segments(own, text, 1, 7)
+    rows = _rows_seen(own.model, monkeypatch)
+    counted.reset()
+    _, (_, got) = own.synthesize(text, 1, seed=7)
+    assert rows == [1]
+    assert counted()["serve.infer_calls"] == counted()["serve.rows"] == 1
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("repeats,calls", [(3, [2, 1]), (5, [4, 1]), (7, [4, 2, 1]),
+                                           (9, [8, 1])])
+def test_group_cut_into_buckets_without_empty_rows(engines, repeats, calls, counted,
+                                                    monkeypatch):
+    """Pieces at one (text bucket, frame budget) run in batch buckets taken
+    largest first, no call padded with an empty row: 5 pieces are calls of 4
+    and 1, not 8 with 3 zero rows. Text buckets of 16 and 32 ids cut the
+    paragraph into pieces of 26-27 ids, one a repeat."""
+    _, _, own, _ = engines
+    monkeypatch.setattr(own, "TEXT_BUCKETS", (16, 32))
+    text = "[P]" + " ".join(["ni3#hao3%"] * repeats) + "[P]"
+    pieces = _pieces(own, text)
+    assert len(pieces) == repeats
+    assert {(own._bucket(len(s)), own._first_frames(len(s), 1.0)) for s, _ in pieces} == {(32, 96)}
+    rows = _rows_seen(own.model, monkeypatch)
+    _, (_, audio) = own.synthesize(text, 0, seed=2)
+    got = counted()
+    assert rows == calls
+    assert got["serve.infer_calls"] == len(calls) == _bucketed_calls(repeats)
+    assert got["serve.rows"] == repeats
+    assert got["serve.frames_decoded"] == 96 * repeats  # no empty row decoded
+    assert got["serve.frames_kept"] * own.hop == len(audio)
+
+
+@pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
+def test_saturated_row_alone_is_redone(engines, which, counted, monkeypatch):
+    """Every piece starts at a frame budget that only the longest piece's
+    predicted length reaches: that row alone is made again from the next
+    bucket (one escalation, one more call at one row); the audio is each
+    piece's through ``_synth_segment`` at the same budgets, concatenated."""
+    _, port, own, _ = engines
+    eng = port if which == "jax_noise" else own
+    monkeypatch.setattr(eng, "TEXT_BUCKETS", (16, 32))
+    text = "[P]" + " ".join(["ni3#hao3%"] * 4) + "[P]"
+    lengths = [len(eng._synth_segment(s, la, 0, 5 + i, 0, 1.0)) // eng.hop
+               for i, (s, la) in enumerate(_pieces(eng, text))]
+    budget = max(lengths)
+    assert sorted(lengths)[-2] < budget < eng.max_frames, lengths
+    monkeypatch.setattr(eng, "FRAME_BUCKETS", (budget,))
+    monkeypatch.setattr(eng, "_first_frames", lambda n, duration: budget)
+    want = _segments(eng, text, 0, 5)
+    rows = _rows_seen(eng.model, monkeypatch)
+    counted.reset()
+    _, (_, got) = eng.synthesize(text, 0, seed=5)
+    after = counted()
+    assert rows == [4, 1]
+    assert after["serve.escalations"] == 1
+    assert after["serve.infer_calls"] == 2 and after["serve.rows"] == 5
+    assert after["serve.frames_decoded"] == budget * 4 + eng.max_frames
+    assert after["serve.frames_kept"] == sum(lengths)
+    assert len(got) == len(want) == sum(lengths) * eng.hop
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _rows_reader():
+    path = Path(__file__).resolve().parent.parent / "perfbench" / "metrics" / \
+        "engine.rows_per_call.long.py"
+    spec = importlib.util.spec_from_file_location("rows_per_call_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"serve.infer_calls": 4, "serve.rows": 9}, 2.25),
+    ({"serve.infer_calls": 5, "serve.rows": 5}, 1.0),
+    ({"serve.infer_calls": 5, "serve.frames_decoded": 5000}, None),  # no rows counted
+    ({"serve.rows": 3}, None),
+    ({}, None),
+])
+def test_rows_per_call_reads_the_counters(counters, want, monkeypatch):
+    from vits_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "snapshot", lambda: {"spans": {}, "counters": counters})
+    assert _rows_reader().read({}) == want
+
+
+def test_rows_per_call_reads_nothing_without_the_aggregate(monkeypatch):
+    from vits_torch.utils import profiling
+
+    monkeypatch.delattr(profiling, "snapshot")
+    assert _rows_reader().read({}) is None
+
+
+def test_rows_per_call_reads_a_traced_paragraph(engines, counted):
+    """Over a paragraph synthesized with the counters on, the reader gives
+    the engine's rows over its calls (LONG: 4 rows in one call)."""
+    _, _, own, _ = engines
+    own.synthesize(LONG, 0, seed=9)
+    assert _rows_reader().read({}) == 4.0

@@ -11,6 +11,7 @@ import json
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -186,12 +187,21 @@ LONG = "[P]" + " ".join(["ni3#hao3%"] * 45) + "[P]"
 
 @pytest.mark.parametrize("path", ["synthesize", "synthesize_chunked"])
 def test_engine_counts_escalations_and_frames(engine, path):
+    """Each escalation is one more call, of one row; ``synthesize`` first
+    sends a text's pieces as calls of pieces grouped by (text bucket, first
+    budget) and cut into 8/4/2/1 rows, reads their lengths once and copies
+    the kept audio once; the chunked path sends a call a piece."""
     profiling.set_tracing(True)
     texts = [SHORT, LONG]
-    pieces = frames = 0
+    pieces = frames = first = 0  # first: the calls of each text's first submission
     for i, text in enumerate(texts):
         seq, lang, _ = engine.get_phoneme(text)
-        pieces += len(engine._split_segments(seq, lang, engine.TEXT_BUCKETS[-1]))
+        segments = engine._split_segments(seq, lang, engine.TEXT_BUCKETS[-1])
+        pieces += len(segments)
+        groups = Counter((engine._bucket(len(s)), engine._first_frames(len(s), 0.25))
+                         for s, _ in segments)
+        first += len(segments) if path == "synthesize_chunked" else \
+            sum(n // 8 + bin(n % 8).count("1") for n in groups.values())
         _, (_, audio) = getattr(engine, path)(text, 0, seed=i, duration=0.25)
         frames += len(audio) // engine.hop
     assert pieces > len(texts)
@@ -199,15 +209,18 @@ def test_engine_counts_escalations_and_frames(engine, path):
     c, spans = snap["counters"], snap["spans"]
     assert c["serve.requests"] == len(texts)
     assert c["serve.escalations"] >= 1
-    assert c["serve.escalations"] == c["serve.infer_calls"] - pieces
+    assert c["serve.escalations"] == c["serve.infer_calls"] - first
+    assert c["serve.rows"] == pieces + c["serve.escalations"]
     assert c["serve.frames_kept"] == frames  # the frames returned, and no others
     assert 0 < c["serve.frames_kept"] <= c["serve.frames_decoded"]
     assert spans["vits.serve.g2p"]["count"] == 2 * len(texts)  # here and in the engine
-    assert spans["vits.serve.noise"]["count"] == spans["vits.serve.sync"]["count"] \
-        == c["serve.infer_calls"]
+    assert spans["vits.serve.noise"]["count"] == c["serve.infer_calls"]
     if path == "synthesize":
         assert spans["vits.serve.infer"]["count"] == c["serve.infer_calls"]
-        assert spans["vits.serve.d2h"]["count"] == pieces
+        assert spans["vits.serve.sync"]["count"] == len(texts) + c["serve.escalations"]
+        assert spans["vits.serve.d2h"]["count"] == len(texts)
+    else:
+        assert spans["vits.serve.sync"]["count"] == c["serve.infer_calls"]
 
 
 def test_batch_counts_padded_rows(engine):

@@ -18,22 +18,32 @@ draws: ``shapes`` maps the model's ``noise`` names to shapes (``sdp_noise``
 and ``eps`` for synthesis, ``eps_spec`` and ``eps_yin`` for a VC window) and
 it returns float32 arrays of those shapes under those names.
 
+A paragraph is one device submission: ``synthesize`` groups its pieces by
+(text bucket, first frame budget) as ``synthesize_batch`` groups requests,
+cuts each group into batch buckets, largest first, so that no call carries
+an empty row, and queues every call before it reads any predicted length
+back; all lengths come to the host in one copy and the kept audio in
+another. A row whose length reached its budget is made again alone, from
+the next frame bucket; its batchmates stand. A text of one piece is one
+call at one row.
+
 Tracing (``utils/profiling.py``, live while tracing is on): spans
-``serve.g2p`` (``get_phoneme``), ``serve.noise``, ``serve.infer`` (the
-model's inference call), ``serve.sync`` (the predicted length to the host,
-which waits for the call's kernels) and ``serve.d2h`` (the audio to the
-host); counters ``serve.requests`` (calls of ``synthesize``,
-``synthesize_chunked``, ``synthesize_streaming`` and requests of
-``synthesize_batch``), ``serve.infer_calls`` and ``serve.escalations``
-(budgeted calls, and those made again at a larger frame budget),
-``serve.frames_decoded`` (budget x rows of each budgeted call) and
-``serve.frames_kept`` (the predicted lengths of the rows whose audio is
-returned: an escalated call's frames, and a saturated batch row's, are all
-decoded and none kept).
+``serve.g2p`` (``get_phoneme``), ``serve.noise``, ``serve.infer`` (a call's
+inputs to the device and the model's inference call), ``serve.sync`` (the
+predicted lengths to the host, which waits for the queued calls' kernels)
+and ``serve.d2h`` (the audio to the host); counters ``serve.requests``
+(calls of ``synthesize``, ``synthesize_chunked``, ``synthesize_streaming``
+and requests of ``synthesize_batch``), ``serve.infer_calls`` and
+``serve.escalations`` (budgeted calls, and rows made again at a larger
+frame budget), ``serve.rows`` (the real rows of each budgeted call),
+``serve.frames_decoded`` (budget x rows, padding rows included, of each
+budgeted call) and ``serve.frames_kept`` (the predicted lengths of the rows
+whose audio is returned: an escalated row's frames, and a saturated batch
+row's, are all decoded and none kept).
 
 Every call runs under ``torch.inference_mode()`` on the engine's device:
 ``cuda`` unless ``device`` names another. On a CUDA device the budgeted calls
-(``synthesize``'s pieces, ``synthesize_batch``'s groups) are replayed from
+(``synthesize``'s and ``synthesize_batch``'s calls) are replayed from
 CUDA graphs captured at each (rows, text bucket, frame bucket) on its first
 use (``serve/graphs.py``; counters ``serve.graph_captures`` and
 ``serve.graph_replays``); duration and scope shift go in as [rows] tensors,
@@ -47,6 +57,8 @@ paths alike, its scope shift unread; ``voice_conversion`` refuses it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,10 +82,24 @@ def _seed(seed) -> int:
     return int(seed) & 0xFFFFFFFF
 
 
-def _count_infer(decoded: int) -> None:
-    """One budgeted model call of ``decoded`` frames (the budget x the rows)."""
+def _count_infer(frames: int, rows: int = 1, empty: int = 0) -> None:
+    """One budgeted model call at a budget of ``frames`` over ``rows`` real
+    rows and ``empty`` padding rows."""
     count("serve.infer_calls")
-    count("serve.frames_decoded", decoded)
+    count("serve.rows", rows)
+    count("serve.frames_decoded", frames * (rows + empty))
+
+
+class _Row(NamedTuple):
+    """One row of a budgeted call: a piece of text (phoneme and language ids,
+    at most the largest text bucket) and its controls."""
+
+    seq: np.ndarray
+    lang: np.ndarray
+    speaker_id: int
+    seed: int
+    scope_shift: int
+    duration: float
 
 
 class TTSEngine:
@@ -194,40 +220,114 @@ class TTSEngine:
         segments.append((seq[start:], lang[start:]))
         return [(s, la) for s, la in segments if len(s) > 0]
 
-    def _text_row(self, seq, lang):
-        """One sequence padded to its text bucket, on the device."""
-        n = len(seq)
-        tx = self._bucket(n)
-        x = np.zeros((1, tx), np.int64)
-        t = np.zeros((1, tx), np.int64)
-        x[0, :n] = seq
-        t[0, :n] = lang
-        dev = self.device
-        return tx, torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev), \
-            torch.tensor([n], device=dev)
-
     def _infer_kwargs(self, duration, scope_shift, frames):
         return dict(noise_scale=NOISE_SCALE, noise_scale_w=NOISE_SCALE_W,
                     length_scale=duration, scope_shift=scope_shift, max_frames=frames)
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On a CUDA device the copy goes
+        through pinned memory and does not block, so it waits for no call
+        queued before it."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _call_inputs(self, rows: list[_Row], tx: int, nb: int):
+        """(x, t, x_lengths, sid, durations, scope shifts) of one call over
+        ``rows`` padded to ``nb`` rows of ``tx`` ids (a padding row: one id 0,
+        speaker 0, duration 1, shift 0), on the device: the integers in one
+        copy, the durations in another. Every control is a [nb] tensor, so a
+        CUDA graph takes it as an input."""
+        ids = np.zeros((2, nb, tx), np.int64)
+        per_row = np.zeros((3, nb), np.int64)
+        per_row[0] = 1
+        durations = np.ones(nb, np.float32)
+        for r, row in enumerate(rows):
+            n = len(row.seq)
+            ids[0, r, :n] = row.seq
+            ids[1, r, :n] = row.lang
+            per_row[:, r] = n, row.speaker_id, row.scope_shift
+            durations[r] = row.duration
+        ints = self._to_device(np.concatenate([ids.ravel(), per_row.ravel()]))
+        x, t = ints[: ids.size].view(2, nb, tx)
+        x_lengths, sid, shifts = ints[ids.size:].view(3, nb)
+        return x, t, x_lengths, sid, self._to_device(durations), shifts
+
+    def _calls(self, rows: list[_Row], fill: bool):
+        """The budgeted calls over ``rows``: (text bucket, frame budget, the
+        rows' indices, rows with padding) each. Rows are grouped by (text
+        bucket, first frame budget), in first-seen order. With ``fill`` a
+        group is one call padded up to a batch bucket (an oversize group runs
+        at its size); without, it is cut into batch buckets, largest first,
+        so that no call carries an empty row (5 rows: 4 + 1)."""
+        groups: dict[tuple[int, int], list[int]] = {}
+        for i, row in enumerate(rows):
+            n = len(row.seq)
+            groups.setdefault((self._bucket(n), self._first_frames(n, row.duration)), []).append(i)
+        for (tx, frames), members in groups.items():
+            if fill:
+                n = len(members)
+                yield tx, frames, members, next((b for b in self.BATCH_BUCKETS if b >= n), n)
+                continue
+            while members:
+                nb = max(b for b in self.BATCH_BUCKETS if b <= len(members))
+                yield tx, frames, members[:nb], nb
+                members = members[nb:]
+
     @torch.inference_mode()
-    def _synth_segment(self, seq, lang, speaker_id, seed, scope_shift, duration):
-        """One bucketed synthesis; the frame budget escalates through
-        FRAME_BUCKETS when the predicted length hits the current budget."""
-        tx, x, t, xl = self._text_row(seq, lang)
-        sid = torch.tensor([speaker_id], device=self.device)
-        # [1] tensors, as a batch row's: no host value is baked into a call
-        controls = (torch.tensor([float(duration)], device=self.device),
-                    torch.tensor([int(scope_shift)], device=self.device))
+    def _infer_rows(self, rows: list[_Row], fill: bool) -> list[tuple]:
+        """Every budgeted call over ``rows`` (``_calls``) queued on the device
+        before any host sync, each row drawing its noise from its own seed at
+        its call's shapes; then every row's predicted length read back in one
+        copy. Returns, in row order, (frame budget, predicted length, audio
+        [budget x hop] on the device) of each row."""
+        calls = []
+        for tx, frames, members, nb in self._calls(rows, fill):
+            seeds = [rows[i].seed for i in members] + [None] * (nb - len(members))
+            with span("serve.noise"):
+                noise = self._noise(seeds, self._synth_shapes(tx, frames))
+            with span("serve.infer"):
+                x, t, xl, sid, durations, shifts = self._call_inputs(
+                    [rows[i] for i in members], tx, nb)
+                wav, _, y_lens = self.model.infer(
+                    x, t, xl, sid, noise=noise, **self._infer_kwargs(durations, shifts, frames))
+            _count_infer(frames, len(members), nb - len(members))
+            calls.append((frames, members, wav, y_lens[: len(members)]))
+        if not calls:
+            return []
+        with span("serve.sync"):
+            lengths = iter(torch.cat([c[3] for c in calls]).tolist())  # the one host sync
+        out: list = [None] * len(rows)
+        for frames, members, wav, _ in calls:
+            for r, i in enumerate(members):
+                out[i] = (frames, next(lengths), wav[r, :, 0])
+        return out
+
+    def _to_host(self, parts: list[torch.Tensor]) -> np.ndarray:
+        """Audio pieces on the device, concatenated, to the host in one copy."""
+        if not parts:
+            return np.zeros(0, np.float32)
+        with span("serve.d2h"):
+            return torch.cat(parts).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def _synth_segment(self, seq, lang, speaker_id, seed, scope_shift, duration, frames=None):
+        """One piece alone at batch 1, from the frame budget ``frames`` (by
+        default its first); the budget escalates through FRAME_BUCKETS while
+        the predicted length reaches it (a host sync each call). Returns the
+        piece's audio on the device."""
+        row = _Row(seq, lang, speaker_id, seed, scope_shift, duration)
+        tx = self._bucket(len(seq))
         buckets = self._frame_buckets()
-        frames = self._first_frames(len(seq), duration)
+        frames = frames or self._first_frames(len(seq), duration)
         while True:
             with span("serve.noise"):
                 noise = self._noise([seed], self._synth_shapes(tx, frames))
             with span("serve.infer"):
+                x, t, xl, sid, durations, shifts = self._call_inputs([row], tx, 1)
                 wav, _, y_len = self.model.infer(
-                    x, t, xl, sid, noise=noise, **self._infer_kwargs(*controls, frames)
-                )
+                    x, t, xl, sid, noise=noise, **self._infer_kwargs(durations, shifts, frames))
             with span("serve.sync"):
                 y_len = int(y_len[0])  # host sync: the budget decision needs it
             _count_infer(frames)
@@ -236,8 +336,7 @@ class TTSEngine:
             count("serve.escalations")
             frames = next(b for b in buckets if b > frames)
         count("serve.frames_kept", y_len)
-        with span("serve.d2h"):
-            return wav[0, : y_len * self.hop, 0].float().cpu().numpy()
+        return wav[0, : y_len * self.hop, 0]
 
     def synthesize(
         self,
@@ -250,18 +349,27 @@ class TTSEngine:
         """Returns (ipa_string, (sampling_rate, waveform np.ndarray)).
 
         Never truncates: long inputs are split at phrase boundaries and the
-        pieces concatenated, piece i drawing its noise from seed + i."""
+        pieces concatenated, piece i drawing its noise from seed + i. The
+        pieces run as batched calls, all queued before one host sync."""
         count("serve.requests")
         return self._synthesize(text, speaker_id, seed, scope_shift, duration)
 
+    @torch.inference_mode()
     def _synthesize(self, text, speaker_id, seed, scope_shift, duration):
         seq, lang, phones = self.get_phoneme(text)
-        pieces = [
-            self._synth_segment(s, la, speaker_id, seed + i, scope_shift, duration)
-            for i, (s, la) in enumerate(self._split_segments(seq, lang, self.TEXT_BUCKETS[-1]))
-        ]
-        audio = np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
-        return phones, (self.sampling_rate, audio)
+        rows = [_Row(s, la, speaker_id, seed + i, scope_shift, duration)
+                for i, (s, la) in enumerate(self._split_segments(seq, lang, self.TEXT_BUCKETS[-1]))]
+        buckets = self._frame_buckets()
+        parts = []
+        for row, (frames, y_len, wav) in zip(rows, self._infer_rows(rows, fill=False)):
+            if y_len >= frames and frames < buckets[-1]:
+                # frame budget saturated: this row alone escalates
+                count("serve.escalations")
+                parts.append(self._synth_segment(*row, frames=next(b for b in buckets if b > frames)))
+            else:
+                count("serve.frames_kept", y_len)
+                parts.append(wav[: y_len * self.hop])
+        return phones, (self.sampling_rate, self._to_host(parts))
 
     @torch.inference_mode()
     def synthesize_batch(self, requests: list[dict]):
@@ -272,14 +380,15 @@ class TTSEngine:
         entries are np.float32 waveforms, or the per-request Exception for
         entries that failed (a bad request never poisons its batchmates).
         Requests are grouped by (text-bucket, frame-bucket), padded up to
-        BATCH_BUCKETS and run as one batch, each row with its own noise,
-        duration and scope shift. Requests whose phoneme sequence exceeds the
-        largest text bucket, or whose frame budget saturates, take the
+        BATCH_BUCKETS and run as one batch each, each row with its own
+        noise, duration and scope shift; every group's call is queued before
+        one host sync. Requests whose phoneme sequence exceeds the largest
+        text bucket, or whose frame budget saturates, take the
         single-request path.
         """
         count("serve.requests", len(requests))
         results: list[np.ndarray | Exception | None] = [None] * len(requests)
-        groups: dict[tuple[int, int], list] = {}
+        rows, owners = [], []
         for i, req in enumerate(requests):
             try:
                 seq, lang, _ = self.get_phoneme(req["text"])
@@ -290,51 +399,22 @@ class TTSEngine:
             if len(seq) > self.TEXT_BUCKETS[-1]:
                 results[i] = self._synthesize_request(req)
                 continue
-            tx = self._bucket(len(seq))
-            frames = self._first_frames(len(seq), float(req.get("duration", 1.0)))
-            groups.setdefault((tx, frames), []).append((i, seq, lang, req))
-
-        for (tx, frames), items in groups.items():
-            n = len(items)
-            # an oversize flush runs at its exact size
-            nb = next((b for b in self.BATCH_BUCKETS if b >= n), n)
-            x = np.zeros((nb, tx), np.int64)
-            t = np.zeros((nb, tx), np.int64)
-            xl = np.ones(nb, np.int64)
-            sid = np.zeros(nb, np.int64)
-            durs = np.ones(nb, np.float32)
-            shifts = np.zeros(nb, np.int64)
-            seeds = [None] * nb
-            for row, (i, seq, lang, req) in enumerate(items):
-                m = len(seq)
-                x[row, :m] = seq
-                t[row, :m] = lang
-                xl[row] = m
-                sid[row] = int(req.get("speaker_id", 0))
-                seeds[row] = int(req.get("seed", 0))
-                durs[row] = float(req.get("duration", 1.0))
-                shifts[row] = int(req.get("scope_shift", 0))
-            dev = self.device
-            with span("serve.noise"):
-                noise = self._noise(seeds, self._synth_shapes(tx, frames))
-            with span("serve.infer"):
-                x_, t_, xl_, sid_, durs_, shifts_ = (torch.from_numpy(a).to(dev)
-                                                      for a in (x, t, xl, sid, durs, shifts))
-                wavs, _, y_lens = self.model.infer(
-                    x_, t_, xl_, sid_, noise=noise, **self._infer_kwargs(durs_, shifts_, frames),
-                )
-            with span("serve.sync"):
-                y_lens = y_lens.cpu().numpy()
-            with span("serve.d2h"):
-                wavs = wavs[..., 0].float().cpu().numpy()
-            _count_infer(frames * nb)
-            for row, (i, seq, lang, req) in enumerate(items):
-                if int(y_lens[row]) >= frames and frames < self._frame_buckets()[-1]:
-                    # frame budget saturated: redo via the escalating path
-                    results[i] = self._synthesize_request(req)
-                else:
-                    count("serve.frames_kept", int(y_lens[row]))
-                    results[i] = wavs[row, : int(y_lens[row]) * self.hop]
+            rows.append(_Row(seq, lang, int(req.get("speaker_id", 0)), int(req.get("seed", 0)),
+                             int(req.get("scope_shift", 0)), float(req.get("duration", 1.0))))
+            owners.append(i)
+        last = self._frame_buckets()[-1]
+        kept, parts = [], []
+        for i, (frames, y_len, wav) in zip(owners, self._infer_rows(rows, fill=True)):
+            if y_len >= frames and frames < last:
+                # frame budget saturated: redo via the escalating path
+                results[i] = self._synthesize_request(requests[i])
+            else:
+                count("serve.frames_kept", y_len)
+                kept.append(i)
+                parts.append(wav[: y_len * self.hop])
+        audio = np.split(self._to_host(parts), np.cumsum([len(p) for p in parts[:-1]]))
+        for i, a in zip(kept, audio):
+            results[i] = a
         return results
 
     def _synthesize_request(self, req: dict) -> np.ndarray:
@@ -401,9 +481,10 @@ class TTSEngine:
     def _chunk_iter(
         self, segments, speaker_id, seed, scope_shift, duration, chunk_frames, overlap_frames
     ):
-        sid = torch.tensor([speaker_id], device=self.device)
         for seg_i, (seq, lang) in enumerate(segments):
-            tx, x, t, xl = self._text_row(seq, lang)
+            tx = self._bucket(len(seq))
+            row = _Row(seq, lang, speaker_id, seed + seg_i, scope_shift, duration)
+            x, t, xl, sid, _, _ = self._call_inputs([row], tx, 1)
             buckets = self._frame_buckets()
             frames = self._first_frames(len(seq), duration)
             while True:
