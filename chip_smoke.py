@@ -10,28 +10,25 @@ weights from a seed, and checks the card against the CPU.
 Phases (any failure ends the script with a non-zero exit; nothing falls back
 to the CPU):
   1. build     nvcc for sm_90a, one process per source, all started together
-  2. kernels   the fused MAS kernel (the main path's), the wide one and the
-               first port's forward + backtrack pair against the plain
-               version, exact, at the test shapes, the edge cases (t_y < t_x,
-               t_x = 1, zero-length items, t_y == t_x with partial lengths),
-               the main-path shape and the largest bucket (64, 1500, 384);
-               the fused kernel and the pair timed in turns (pair, fused,
-               fused, pair) with their bounds, and at the main-path shape
-               mas_wide against mas_fused in turns, for the record (route
-               keeps mas_fused); then the shapes mas_fused cannot take,
-               (16, 1500, 512), (16, 2000, 1024), (8, 2000, 384), (4, 3000,
-               2052) and (2, 13000, 64): the plan of each and the clusters
-               the card holds at once (at least 1), maximum_path launches
-               mas_wide once each, exact; at the first two and at (16, 1500,
-               1024) mas_wide and the pair timed in turns (pair, wide, wide,
-               pair) with the bound, and mas_wide must be the faster; then
-               the benchmark scripts' train shapes (32, 400, 128) and (16,
-               400, 128), random lengths with item 0 full: maximum_path
-               launches mas_fused once each, exact, and its time and bound
+  2. kernels   the fused MAS kernel (the main path's) and the wide one
+               against the plain version, exact, at the test shapes, the edge
+               cases (t_y < t_x, t_x = 1, zero-length items, t_y == t_x with
+               partial lengths), the main-path shape and the largest bucket
+               (64, 1500, 384); the fused kernel timed with its bound, and at
+               the main-path shape mas_wide against mas_fused in turns, for
+               the record (route keeps mas_fused); then the shapes mas_fused
+               cannot take, (16, 1500, 512), (16, 2000, 1024), (8, 2000,
+               384), (4, 3000, 2052) and (2, 13000, 64): the plan of each and
+               the clusters the card holds at once (at least 1), maximum_path
+               launches mas_wide once each, exact; at the first two and at
+               (16, 1500, 1024) mas_wide timed with the bound; then the
+               benchmark scripts' train shapes (32, 400, 128) and (16, 400,
+               128), random lengths with item 0 full: maximum_path launches
+               mas_fused once each, exact, and its time and bound
   3. forward   SynthesizerTrn.forward, B=16 x T_y=400, text 129-191 ids,
                features made by the port's spectrogram and Yingram from a
-               synthetic waveform; it must launch mas_fused once and the
-               pair never
+               synthetic waveform; it must launch mas_fused once and
+               mas_wide never
   4. infer     SynthesizerTrn.infer at batch 1 and 8, max_frames=1000
   5. train     training/step.py::train_step at full width: the CJE generator
                and the flagship Avocodo discriminator, B=16 x 400 frames with
@@ -70,7 +67,7 @@ to the CPU):
                then TTSEngine serves the newest eval_{step} (strict load).
                Step times, loader waits, peak memory, losses, evaluate and
                checkpoint times; mas_fused once a train step and once a
-               validation batch, the pair never
+               validation batch, mas_wide never
   9. ddp       (a) the train CLI under torchrun with --distributed, world 1
                over NCCL, on phase 8's corpus and config (2 epochs, B=64,
                bf16): exit 0, no process of the run left, its logged losses
@@ -185,7 +182,7 @@ F32_OPS_PER_S = 67e12
 MAIN_B, MAIN_T_Y, MAIN_T_X = 16, 400, 191
 # shapes that mas_fused cannot take, so maximum_path launches mas_wide: T_x
 # of max_text_len 254 and 510 at the top buckets, the CJE text bound with a
-# 2000-frame bucket, T_x over 2048, T_y past the first port's backtrack limit (12,288)
+# 2000-frame bucket, T_x over 2048, and T_y 13,000 at a narrow T_x
 WIDE_CASES = [(16, 1500, 512), (16, 2000, 1024), (8, 2000, 384), (4, 3000, 2052),
               (2, 13000, 64)]
 WIDE_TIMED = [(16, 1500, 512), (16, 2000, 1024), (16, 1500, 1024)]
@@ -314,79 +311,48 @@ def check_mas(card: str, main_lengths) -> dict:
     """Phase 2: every MAS kernel against its plain version, exact; times."""
     from vits_torch.ops import mas, mas_cuda
 
-    err = {"mas_fused": 0.0, "mas_forward": 0.0, "mas_backtrack": 0.0, "mas_wide": 0.0}
+    err = dict.fromkeys(mas_cuda.launches, 0.0)
     # t_y == t_x is the diagonal case: full lengths force the identity path
     cases = [(b, ty, tx, *(([ty] * b, [tx] * b) if ty == tx else (None, None)))
              for b, ty, tx in CHECK_CASES]
     cases += EDGE_CASES
     cases.append((MAIN_B, MAIN_T_Y, MAIN_T_X, *main_lengths))
     for i, (b, t_y, t_x, t_ys, t_xs) in enumerate(cases):
-        neg, mask, ty, tx = mas_case(b, t_y, t_x, 100 + i, t_ys, t_xs)
+        neg, mask, _, _ = mas_case(b, t_y, t_x, 100 + i, t_ys, t_xs)
         ref = mas.maximum_path_torch(neg, mask)
         e_u = (mas_cuda.mas_fused(neg, mask) - ref).abs().max().item()
         full = mas.maximum_path(neg, mask)
         e_p = (full - ref).abs().max().item()
-        dec_plain = mas.mas_decisions(neg, mask)
-        dec = mas_cuda.mas_forward(neg, ty, tx)
-        inside = mask.bool()
-        e_f = (dec[inside].float() - dec_plain[inside].float()).abs().max().item()
-        path = mas_cuda.mas_backtrack(dec_plain, ty, tx)
-        e_b = (path - mas.mas_backtrack(dec_plain, ty, tx)).abs().max().item()
         e_w = (mas_cuda.mas_wide(neg, mask) - ref).abs().max().item()
         torch.cuda.synchronize()
         if t_ys is not None and t_y == t_x and t_ys[0] == t_y and t_xs[0] == t_x \
                 and not torch.equal(full[0].cpu(), torch.eye(t_y)):
             raise AssertionError("MAS: t_y == t_x must give the identity path")
         print(f"{card} | mas check B={b} T_y={t_y} T_x={t_x}: fused max|err|={e_u} "
-              f"maximum_path max|err|={e_p} forward max|err|={e_f} backtrack max|err|={e_b} "
-              f"wide max|err|={e_w}")
-        if e_u or e_p or e_f or e_b or e_w:
+              f"maximum_path max|err|={e_p} wide max|err|={e_w}")
+        if e_u or e_p or e_w:
             raise AssertionError("MAS kernel disagrees with the plain version")
-        for k, e in (("mas_fused", max(e_u, e_p)), ("mas_forward", e_f), ("mas_backtrack", e_b),
-                     ("mas_wide", e_w)):
-            err[k] = max(err[k], e)
+        err["mas_fused"] = max(err["mas_fused"], e_u, e_p)
+        err["mas_wide"] = max(err["mas_wide"], e_w)
 
     rows = {}
     shapes = (("main", cases[-1]), ("large", cases[4]), ("largest", cases[5]))
     for label, (b, t_y, t_x, t_ys, t_xs) in shapes:
         neg, mask, ty, tx = mas_case(b, t_y, t_x, 7, t_ys, t_xs)
-        cells = float((ty.double() * tx.double()).sum())
-        path_bytes = 4.0 * b * t_y * t_x
-
-        def pair():
-            return mas_cuda.mas_backtrack(mas_cuda.mas_forward(neg, ty, tx), ty, tx)
 
         def fused():
             return mas_cuda.mas_fused(neg, mask)
 
-        turns = [cuda_ms(pair), cuda_ms(fused), cuda_ms(fused), cuda_ms(pair)]
-        pair_ms, fused_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        dec = mas_cuda.mas_forward(neg, ty, tx)
-        fw_ms = cuda_ms(lambda: mas_cuda.mas_forward(neg, ty, tx))
-        bt_ms = cuda_ms(lambda: mas_cuda.mas_backtrack(dec, ty, tx))
+        fused_ms = cuda_ms(fused)
         whole_ms = cuda_ms(lambda: mas.maximum_path(neg, mask))
-        fw_plain = cuda_ms(lambda: mas.mas_decisions(neg, mask), iters=3, warmup=1)
-        dec_plain = mas.mas_decisions(neg, mask)
-        bt_plain = cuda_ms(lambda: mas.mas_backtrack(dec_plain, ty, tx), iters=3, warmup=1)
         fused_plain = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=3, warmup=1)
         fused_bound = mas_bound(ty, tx, t_y, t_x)
-        # forward: read the scores inside the rectangles (4 B), write one
-        # decision byte each; add, max and compare a cell
-        fw_bound = bound_ms(5 * cells, 3 * cells)
-        # backtrack: one decision a row, write the whole f32 path
-        bt_bound = bound_ms(float(ty.sum()) + path_bytes, float(ty.sum()))
-        print(f"{card} | mas {label} B={b} T_y={t_y} T_x={t_x}: in turns pair {turns[0]:.4f}, "
-              f"fused {turns[1]:.4f}, fused {turns[2]:.4f}, pair {turns[3]:.4f} ms; fused "
-              f"{fused_ms:.4f} ms against pair {pair_ms:.4f} ms ({pair_ms / fused_ms:.2f}x), "
+        cells = float((ty.double() * tx.double()).sum())
+        print(f"{card} | mas {label} B={b} T_y={t_y} T_x={t_x}: fused {fused_ms:.4f} ms, "
               f"bound {fused_bound[0]:.5f} ms by {fused_bound[1]} "
-              f"({(4 * cells + 4.0 * b * (t_y + t_x) + path_bytes) / 1e6:.1f} MB), plain "
-              f"{fused_plain:.3f} ms; maximum_path {whole_ms:.4f} ms; forward {fw_ms:.4f} ms "
-              f"(plain {fw_plain:.3f} ms, bound {fw_bound[0]:.5f} ms by {fw_bound[1]}); backtrack "
-              f"{bt_ms:.4f} ms (plain {bt_plain:.3f} ms, bound {bt_bound[0]:.5f} ms by {bt_bound[1]})")
-        if fused_ms >= pair_ms:
-            raise AssertionError(f"mas {label}: the fused kernel is not faster than the pair")
-        rows[label] = dict(fused=(fused_ms, fused_plain, fused_bound), fw=(fw_ms, fw_plain, fw_bound),
-                           bt=(bt_ms, bt_plain, bt_bound))
+              f"({(4 * cells + 4.0 * b * (t_y + t_x) + 4.0 * b * t_y * t_x) / 1e6:.1f} MB), "
+              f"plain {fused_plain:.3f} ms; maximum_path {whole_ms:.4f} ms")
+        rows[label] = dict(fused=(fused_ms, fused_plain, fused_bound))
         if label == "main":
             # for the record (route keeps mas_fused here): mas_wide on the
             # same inputs, in turns with mas_fused
@@ -428,27 +394,12 @@ def check_mas(card: str, main_lengths) -> dict:
     wide = {}
     for b, t_y, t_x in WIDE_TIMED:
         neg, mask, ty, tx = mas_case(b, t_y, t_x, 7, full_first=True)
-
-        def pair():
-            return mas_cuda.mas_backtrack(mas_cuda.mas_forward(neg, ty, tx), ty, tx)
-
-        def wide_kernel():
-            return mas_cuda.mas_wide(neg, mask)
-
-        # the first port's pair takes these shapes too (T_x <= 4096, T_y <= 12,288)
-        turns = [cuda_ms(pair, iters=10), cuda_ms(wide_kernel, iters=10),
-                 cuda_ms(wide_kernel, iters=10), cuda_ms(pair, iters=10)]
-        w_ms, pair_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        w_ms = cuda_ms(lambda: mas_cuda.mas_wide(neg, mask), iters=10)
         plain_ms = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1)
         b_ms, b_by = mas_bound(ty, tx, t_y, t_x)
         wide[(b, t_y, t_x)] = (w_ms, plain_ms, (b_ms, b_by))
-        print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: in turns pair {turns[0]:.4f}, "
-              f"wide {turns[1]:.4f}, wide {turns[2]:.4f}, pair {turns[3]:.4f} ms; mas_wide "
-              f"{w_ms:.4f} ms against pair {pair_ms:.4f} ms ({pair_ms / w_ms:.2f}x), plain "
+        print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: mas_wide {w_ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({w_ms / b_ms:.1f}x the bound)")
-        if w_ms >= pair_ms:
-            raise AssertionError(f"mas wide ({b}, {t_y}, {t_x}): mas_wide is not faster than "
-                                 "the pair")
     # the benchmark scripts' shapes (phase 15): maximum_path launches mas_fused
     bench = {}
     for i, (b, t_y, t_x) in enumerate(BENCH_MAS_CASES):
@@ -546,7 +497,7 @@ def check_forward(card, model, batch, gen, hps):
         ms = host_ms(run)
     print(f"{card} | forward launches on the main path: {launches}")
     if launches != mas_only(mas_fused=1):
-        raise AssertionError("the training forward must launch mas_fused once and the pair never")
+        raise AssertionError("the training forward must launch mas_fused once and mas_wide never")
     seg = hps.train.segment_size
     inter, two_b = hps.model.inter_channels, 2 * MAIN_B
     shapes = {
@@ -1103,7 +1054,7 @@ def check_serve(card, config_path, seed):
         if isinstance(a, Exception):
             raise AssertionError(f"serve batch: {a!r}")
         audio_ok("batch row", a)
-        solo = eng._synthesize_request(r)
+        solo = eng.synthesize(**r)[1][1]
         if len(solo) != len(a):
             lengths_equal = False
             print(f"{card} | serve batch row {r['text'][:12]!r}: {len(a)} samples in the batch, "
@@ -2526,19 +2477,17 @@ def main() -> int:
         }
 
     kernels = []
-    # mas_fused replaces both Pallas kernels; the pair is off the main path
-    for name, line, key in (("mas_fused", 36, "fused"), ("mas_forward", 36, "fw"),
-                            ("mas_backtrack", 57, "bt")):
-        ms, plain_ms, (b_ms, b_by) = mas_rows["main"][key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": "vits_torch/csrc/mas.cu",
-            "replaces": f"vits_tpu/ops/mas_pallas.py:{line}",
-            # the main path: the train steps under the config's bf16 policy
-            "launches": train[True]["launches"][name],
-            "max_abs_err": mas_rows["err"][name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **on_paths(name),
-        })
-    kernels[0]["also_replaces"] = "vits_tpu/ops/mas_pallas.py:57"
+    # mas_fused replaces both Pallas kernels on the main path
+    ms, plain_ms, (b_ms, b_by) = mas_rows["main"]["fused"]
+    kernels.append({
+        "name": "mas_fused", "route": "cuda", "source": "vits_torch/csrc/mas.cu",
+        "replaces": "vits_tpu/ops/mas_pallas.py:36",
+        "also_replaces": "vits_tpu/ops/mas_pallas.py:57",
+        # the main path: the train steps under the config's bf16 policy
+        "launches": train[True]["launches"]["mas_fused"],
+        "max_abs_err": mas_rows["err"]["mas_fused"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **on_paths("mas_fused"),
+    })
     # the benchmark scripts' train shapes (phase 2)
     kernels[0]["at_bench"] = {"x".join(map(str, shape)): {"ms": t[0], "plain_ms": t[1],
                                                           "bound_ms": t[2][0]}

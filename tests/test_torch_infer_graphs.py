@@ -64,8 +64,8 @@ def graphs(engine):
 
 def _call(engine, tx, frames, seed):
     """The arguments of one batch-1 call at (tx, frames): tx - 3 ids, the
-    duration and scope shift as [1] tensors, as ``_synth_segment`` gives
-    them."""
+    duration and scope shift as [1] tensors, as the engine's budgeted calls
+    give them."""
     g = torch.Generator().manual_seed(seed)
     n = tx - 3
     x = torch.zeros(1, tx, dtype=torch.int64)

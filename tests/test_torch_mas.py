@@ -81,13 +81,13 @@ def test_cpu_tensor_takes_the_plain_version():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    neg_cent, mask, t_ys, t_xs = _case(*CASES[0])
-    lengths = torch.from_numpy(t_ys.astype(np.int32)), torch.from_numpy(t_xs.astype(np.int32))
+    neg_cent, mask, _, _ = _case(*CASES[0])
+    n, m = torch.from_numpy(neg_cent), torch.from_numpy(mask)
     before = dict(mas_cuda.launches)
     with pytest.raises(ValueError, match="CUDA"):
-        mas_cuda.mas_forward(torch.from_numpy(neg_cent), *lengths)
+        mas_cuda.mas_fused(n, m)
     with pytest.raises(ValueError, match="CUDA"):
-        mas_cuda.mas_backtrack(torch.zeros(neg_cent.shape, dtype=torch.uint8), *lengths)
+        mas_cuda.mas_wide(n, m)
     assert mas_cuda.launches == before
 
 
@@ -96,14 +96,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_kernels_match_plain_version_on_card(b, t_y, t_x):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the MAS kernels are CUDA-only")
-    neg_cent, mask, t_ys, t_xs = _case(b, t_y, t_x)
+    neg_cent, mask, _, _ = _case(b, t_y, t_x)
     n, m = torch.from_numpy(neg_cent).cuda(), torch.from_numpy(mask).cuda()
-    ty = torch.from_numpy(t_ys.astype(np.int32)).cuda()
-    tx = torch.from_numpy(t_xs.astype(np.int32)).cuda()
-    dec_plain = mas.mas_decisions(n, m)
-    dec = mas_cuda.mas_forward(n, ty, tx)
-    inside = m.bool()
-    assert torch.equal(dec[inside], dec_plain[inside])
-    assert torch.equal(mas_cuda.mas_backtrack(dec_plain, ty, tx), mas.mas_backtrack(dec_plain, ty, tx))
+    before = dict(mas_cuda.launches)
     assert torch.equal(mas.maximum_path(n, m), mas.maximum_path_torch(n, m))
     torch.cuda.synchronize()
+    kernel = "mas_" + mas_cuda.route(t_y, t_x)
+    assert {k: v - before[k] for k, v in mas_cuda.launches.items()} == \
+        {k: int(k == kernel) for k in before}

@@ -209,21 +209,30 @@ def test_long_input_split_matches_jax(engines):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
-def test_frame_budget_escalation_matches_jax(engines):
-    """Durations pushed up (the SDP's output affine shifted) so the first
-    frame bucket saturates: both engines escalate to the same budget, in
-    the single and in the batched path."""
-    jeng, port, _, params = engines
+def _longer(params):
+    """``params`` with the durations pushed up (the SDP's output affine
+    shifted), so that ``SATURATING`` at duration 0.25 saturates a first frame
+    bucket of 32."""
     dp = params["params"]["duration_predictor"]["flow_pre"]
     longer = jax.tree_util.tree_map(lambda a: a, params)
     longer["params"]["duration_predictor"] = dict(
         params["params"]["duration_predictor"],
         flow_pre={"m": dp["m"] - np.array([2.0, 0.0], np.float32), "logs": dp["logs"]},
     )
-    text = "[P]ni3#hao3[P]"
+    return longer
+
+
+SATURATING = "[P]ni3#hao3[P]"
+
+
+def test_frame_budget_escalation_matches_jax(engines):
+    """Durations pushed up so the first frame bucket saturates: both engines
+    escalate to the same budget, in the single and in the batched path."""
+    jeng, port, _, params = engines
+    text = SATURATING
     saved = jeng.FRAME_BUCKETS
     try:
-        _set_params(jeng, (port,), longer)
+        _set_params(jeng, (port,), _longer(params))
         jeng.FRAME_BUCKETS = port.FRAME_BUCKETS = (32, 64)
         n = len(port.get_phoneme(text)[0])
         assert port._first_frames(n, 0.25) == 32  # want = n * 6 * 0.25
@@ -289,7 +298,7 @@ def test_batch_rows_equal_single_requests(engines):
     for eng in (port, own):
         together = eng.synthesize_batch(BATCH)
         for req, a in zip(BATCH, together):
-            np.testing.assert_allclose(a, eng._synthesize_request(req), rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(a, eng.synthesize(**req)[1][1], rtol=1e-5, atol=1e-5)
 
 
 def test_batch_composition_independent(engines):
@@ -505,11 +514,11 @@ def test_engine_loads_a_saved_state_dict(engines, cfg_path, tmp_path):
 @pytest.mark.parametrize("shift", [-15, 0, 15])
 @pytest.mark.parametrize("duration", [0.8, 1.0, 1.3])
 def test_segment_controls_as_tensors_equal_scalars(engines, shift, duration):
-    """``_synth_segment`` hands ``model.infer`` the duration and the scope
-    shift as [1] tensors on the engine's device (a batch row's form, which a
-    CUDA graph takes as inputs); each call gives, bit for bit, what the same
-    call with the scalar forms gives, and the segment's audio is the scalar
-    call's."""
+    """``synthesize`` of a one-piece text hands ``model.infer`` the duration
+    and the scope shift as [1] tensors on the engine's device (a batch row's
+    form, which a CUDA graph takes as inputs); each call gives, bit for bit,
+    what the same call with the scalar forms gives, and the text's audio is
+    the scalar call's."""
     _, _, own, _ = engines
     model = own.model
     original = model.infer
@@ -522,8 +531,8 @@ def test_segment_controls_as_tensors_equal_scalars(engines, shift, duration):
 
     model.infer = infer
     try:
-        seq, lang, _ = own.get_phoneme(TEXTS[3])
-        audio = own._synth_segment(seq, lang, 1, 7, shift, duration)
+        _, (_, audio) = own.synthesize(TEXTS[3], 1, seed=7, scope_shift=shift,
+                                       duration=duration)
     finally:
         del model.infer
     assert calls
@@ -616,11 +625,16 @@ def _pieces(engine, text):
     return engine._split_segments(seq, lang, engine.TEXT_BUCKETS[-1])
 
 
-def _segments(engine, text, speaker, seed, **kw):
-    """``text``'s pieces alone, each through ``_synth_segment``, concatenated."""
-    return np.concatenate([
-        engine._synth_segment(s, la, speaker, seed + i, 0, 1.0, **kw).numpy()
-        for i, (s, la) in enumerate(_pieces(engine, text))])
+def _alone(engine, text, speaker, seed) -> list[np.ndarray]:
+    """``text``'s pieces alone, each the engine's budget loop on one row
+    (piece i seeded seed + i): the audio of each."""
+    rows = engine._rows(*engine.get_phoneme(text)[:2], speaker, seed, 0, 1.0)
+    return [engine._budget_walk([row], fill=False)[0].numpy() for row in rows]
+
+
+def _segments(engine, text, speaker, seed):
+    """``text``'s pieces alone (``_alone``), concatenated."""
+    return np.concatenate(_alone(engine, text, speaker, seed))
 
 
 @pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
@@ -641,16 +655,17 @@ def test_long_input_batched_equals_pieces_alone(engines, which, counted, monkeyp
 
 @pytest.mark.parametrize("text", TEXTS)
 def test_one_piece_is_one_call_at_one_row(engines, text, counted, monkeypatch):
-    """A text of one piece makes one call at one row, and its audio is
-    ``_synth_segment``'s bit for bit."""
-    _, _, own, _ = engines
-    want = _segments(own, text, 1, 7)
-    rows = _rows_seen(own.model, monkeypatch)
+    """A text of one piece makes one call at one row, and its audio is the
+    JAX engine's within TOL."""
+    jeng, port, _, _ = engines
+    want = jeng.synthesize(text, 1, 7)[1][1]
+    rows = _rows_seen(port.model, monkeypatch)
     counted.reset()
-    _, (_, got) = own.synthesize(text, 1, seed=7)
+    _, (_, got) = port.synthesize(text, 1, seed=7)
     assert rows == [1]
     assert counted()["serve.infer_calls"] == counted()["serve.rows"] == 1
-    np.testing.assert_array_equal(got, want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("repeats,calls", [(3, [2, 1]), (5, [4, 1]), (7, [4, 2, 1]),
@@ -682,13 +697,12 @@ def test_saturated_row_alone_is_redone(engines, which, counted, monkeypatch):
     """Every piece starts at a frame budget that only the longest piece's
     predicted length reaches: that row alone is made again from the next
     bucket (one escalation, one more call at one row); the audio is each
-    piece's through ``_synth_segment`` at the same budgets, concatenated."""
+    piece's alone at the same budgets, concatenated."""
     _, port, own, _ = engines
     eng = port if which == "jax_noise" else own
     monkeypatch.setattr(eng, "TEXT_BUCKETS", (16, 32))
     text = "[P]" + " ".join(["ni3#hao3%"] * 4) + "[P]"
-    lengths = [len(eng._synth_segment(s, la, 0, 5 + i, 0, 1.0)) // eng.hop
-               for i, (s, la) in enumerate(_pieces(eng, text))]
+    lengths = [len(a) // eng.hop for a in _alone(eng, text, 0, 5)]
     budget = max(lengths)
     assert sorted(lengths)[-2] < budget < eng.max_frames, lengths
     monkeypatch.setattr(eng, "FRAME_BUCKETS", (budget,))
@@ -705,6 +719,136 @@ def test_saturated_row_alone_is_redone(engines, which, counted, monkeypatch):
     assert after["serve.frames_kept"] == sum(lengths)
     assert len(got) == len(want) == sum(lengths) * eng.hop
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
+def test_saturated_rows_are_redone_together(engines, which, counted, monkeypatch):
+    """Every piece starts at a frame budget that the two longest pieces'
+    predicted lengths reach: both are made again from the next bucket in one
+    call of 2 rows (two escalations, one more call and one more host sync);
+    the audio is each piece's alone at the same budgets, concatenated."""
+    from vits_torch.utils import profiling
+
+    _, port, own, _ = engines
+    eng = port if which == "jax_noise" else own
+    monkeypatch.setattr(eng, "TEXT_BUCKETS", (16, 32))
+    text = "[P]" + " ".join(["ni3#hao3%"] * 4) + "[P]"
+    lengths = [len(a) // eng.hop for a in _alone(eng, text, 0, 5)]
+    budget = sorted(lengths)[-2]
+    assert sorted(lengths)[-3] < budget < eng.max_frames, lengths
+    monkeypatch.setattr(eng, "FRAME_BUCKETS", (budget,))
+    monkeypatch.setattr(eng, "_first_frames", lambda n, duration: budget)
+    want = _segments(eng, text, 0, 5)
+    rows = _rows_seen(eng.model, monkeypatch)
+    counted.reset()
+    _, (_, got) = eng.synthesize(text, 0, seed=5)
+    after = counted()
+    assert rows == [4, 2]
+    assert after["serve.escalations"] == 2
+    assert after["serve.infer_calls"] == 2 and after["serve.rows"] == 6
+    assert after["serve.frames_decoded"] == budget * 4 + eng.max_frames * 2
+    assert profiling.snapshot()["spans"]["vits.serve.sync"]["count"] == 2
+    assert len(got) == len(want) == sum(lengths) * eng.hop
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.fixture
+def saturating(engines):
+    """The port's two engines with ``_longer`` weights and frame buckets of
+    32 and 64 (and ``max_frames`` 96) for the test."""
+    _, port, own, params = engines
+    for e in (port, own):
+        load_flax_params(e.model, _longer(params))
+        e.FRAME_BUCKETS = (32, 64)
+    yield port, own
+    for e in (port, own):
+        del e.FRAME_BUCKETS
+        load_flax_params(e.model, params)
+
+
+@pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
+def test_saturated_batch_request_is_not_repeated(saturating, which, counted, monkeypatch):
+    """A batch's request whose first budget saturates is phonemized once, and
+    its row is made again from the next budget only: its calls are at 32 and
+    64 frames, and the saturated call at 32 is not repeated. Its audio is
+    ``synthesize``'s bit for bit: both redo the row alone at the same key."""
+    port, own = saturating
+    eng = port if which == "jax_noise" else own
+    reqs = [{"text": SATURATING, "seed": 2, "duration": 0.25}, {"text": "[P]a1[P]", "seed": 4}]
+    _, (_, alone) = eng.synthesize(SATURATING, 0, seed=2, duration=0.25)
+    n = len(eng.get_phoneme(SATURATING)[0])
+    texts, budgets = Counter(), []
+    get_phoneme, infer = eng.get_phoneme, eng.model.infer
+
+    def g2p(text):
+        texts[text] += 1
+        return get_phoneme(text)
+
+    def spy(x, t, x_lengths, *args, **kwargs):
+        if n in x_lengths.tolist():
+            budgets.append(kwargs["max_frames"])
+        return infer(x, t, x_lengths, *args, **kwargs)
+
+    monkeypatch.setattr(eng, "get_phoneme", g2p)
+    monkeypatch.setattr(eng.model, "infer", spy)
+    counted.reset()
+    out = eng.synthesize_batch(reqs)
+    assert texts == Counter(r["text"] for r in reqs)
+    assert budgets == [32, 64]
+    assert counted()["serve.escalations"] == 1 and counted()["serve.requests"] == 2
+    np.testing.assert_array_equal(out[0], alone)
+
+
+SHORT_AT_LONG_KEY = "[P]" + " ".join(["ni3#hao3%"] * 12) + "[P]"
+
+
+@pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
+def test_long_request_shares_the_batch_call(engines, which, counted, monkeypatch):
+    """A batch of LONG (4 pieces over the largest text bucket) and a short
+    request at the pieces' (text bucket, first budget) is one call of 5 rows
+    padded to 8 and one host sync: the over-long request's pieces are rows of
+    the batch. Each audio is within TOL of the request alone."""
+    from vits_torch.utils import profiling
+
+    _, port, own, _ = engines
+    eng = port if which == "jax_noise" else own
+    pieces = _pieces(eng, LONG) + _pieces(eng, SHORT_AT_LONG_KEY)
+    assert len(pieces) == 5
+    assert len({(eng._bucket(len(s)), eng._first_frames(len(s), 1.0)) for s, _ in pieces}) == 1
+    reqs = [{"text": LONG, "speaker_id": 1, "seed": 3},
+            {"text": SHORT_AT_LONG_KEY, "speaker_id": 0, "seed": 8}]
+    alone = [eng.synthesize(**r)[1][1] for r in reqs]
+    rows = _rows_seen(eng.model, monkeypatch)
+    counted.reset()
+    out = eng.synthesize_batch(reqs)
+    assert rows == [8]
+    assert counted()["serve.infer_calls"] == 1 and counted()["serve.rows"] == 5
+    assert profiling.snapshot()["spans"]["vits.serve.sync"]["count"] == 1
+    for o, a in zip(out, alone):
+        assert len(o) == len(a) > 0
+        np.testing.assert_allclose(o, a, **TOL)
+
+
+@pytest.mark.parametrize("which", ["jax_noise", "own_noise"])
+def test_batch_group_over_the_largest_bucket_is_cut(engines, which, counted, monkeypatch):
+    """A batch of 11 requests at one (text bucket, first budget) runs as a
+    full call of 8 rows and a call of 3 rows padded to 4: no call has more
+    rows than the largest batch bucket. Each audio is within TOL of the
+    request alone."""
+    _, port, own, _ = engines
+    eng = port if which == "jax_noise" else own
+    reqs = [{"text": TEXTS[0], "speaker_id": i % 2, "seed": i} for i in range(11)]
+    alone = [eng.synthesize(**r)[1][1] for r in reqs]
+    rows = _rows_seen(eng.model, monkeypatch)
+    counted.reset()
+    out = eng.synthesize_batch(reqs)
+    budget = eng._first_frames(len(eng.get_phoneme(TEXTS[0])[0]), 1.0)
+    assert rows == [8, 4]
+    assert counted()["serve.infer_calls"] == 2 and counted()["serve.rows"] == 11
+    assert counted()["serve.frames_decoded"] == budget * 12
+    for o, a in zip(out, alone):
+        assert len(o) == len(a) > 0
+        np.testing.assert_allclose(o, a, **TOL)
 
 
 def _rows_reader():

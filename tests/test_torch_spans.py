@@ -187,10 +187,12 @@ LONG = "[P]" + " ".join(["ni3#hao3%"] * 45) + "[P]"
 
 @pytest.mark.parametrize("path", ["synthesize", "synthesize_chunked"])
 def test_engine_counts_escalations_and_frames(engine, path):
-    """Each escalation is one more call, of one row; ``synthesize`` first
-    sends a text's pieces as calls of pieces grouped by (text bucket, first
-    budget) and cut into 8/4/2/1 rows, reads their lengths once and copies
-    the kept audio once; the chunked path sends a call a piece."""
+    """Each escalation is one more row; here each round saturates at most
+    one row, so each is also one more round: one more call, of one row, and
+    one more host sync. ``synthesize`` first sends a text's pieces as calls
+    of pieces grouped by (text bucket, first budget) and cut into 8/4/2/1
+    rows, reads their lengths once a round and copies the kept audio once;
+    the chunked path sends a call a piece."""
     profiling.set_tracing(True)
     texts = [SHORT, LONG]
     pieces = frames = first = 0  # first: the calls of each text's first submission

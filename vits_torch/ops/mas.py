@@ -13,9 +13,7 @@ Two implementations with the JAX package's layout ([B, T_y, T_x]):
   * the plain PyTorch version here (``mas_decisions`` + ``mas_backtrack``),
     a row loop that repeats the JAX ``maximum_path_scan`` arithmetic;
   * the CUDA kernels in ``vits_torch/csrc/mas.cu`` (``ops/mas_cuda.py``):
-    ``mas_fused`` and ``mas_wide``, each one launch for the whole search, and
-    the first port's pair ``mas_forward`` + ``mas_backtrack``, which no path
-    runs.
+    ``mas_fused`` and ``mas_wide``, each one launch for the whole search.
 
 ``maximum_path`` takes the plain version only for a CPU tensor. A CUDA
 tensor launches the kernel that ``mas_cuda.route`` names for its shape

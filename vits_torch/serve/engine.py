@@ -18,14 +18,22 @@ draws: ``shapes`` maps the model's ``noise`` names to shapes (``sdp_noise``
 and ``eps`` for synthesis, ``eps_spec`` and ``eps_yin`` for a VC window) and
 it returns float32 arrays of those shapes under those names.
 
-A paragraph is one device submission: ``synthesize`` groups its pieces by
-(text bucket, first frame budget) as ``synthesize_batch`` groups requests,
-cuts each group into batch buckets, largest first, so that no call carries
-an empty row, and queues every call before it reads any predicted length
-back; all lengths come to the host in one copy and the kept audio in
-another. A row whose length reached its budget is made again alone, from
-the next frame bucket; its batchmates stand. A text of one piece is one
-call at one row.
+Frame budgets: ``synthesize`` (a paragraph's pieces) and
+``synthesize_batch`` (the requests' pieces) run their rows through one loop,
+``_budget_walk``. Each row starts at its first budget (``_first_frames``).
+A round groups the rows by (text bucket, budget), in first-seen order, and
+queues every call before its one host read of the predicted lengths. A row
+whose length reached its budget moves to the next frame bucket
+(``_next_budget``, the one place of that rule) and is made again in the next
+round with the other such rows; its batchmates stand. The walk ends when
+every row is under its budget or at the last bucket, so a paragraph that
+saturates nothing is one round. ``synthesize`` cuts each group into batch
+buckets, largest first, so that no call carries an empty row (a text of one
+piece is one call at one row); ``synthesize_batch`` cuts each group into
+full calls of the largest batch bucket and pads the rest up to a batch
+bucket. The kept audio comes to the host in one copy. The chunked and
+streaming paths need the pre-decoder alone and walk the budgets a piece at a
+time, at batch 1.
 
 Tracing (``utils/profiling.py``, live while tracing is on): spans
 ``serve.g2p`` (``get_phoneme``), ``serve.noise``, ``serve.infer`` (a call's
@@ -38,8 +46,8 @@ and requests of ``synthesize_batch``), ``serve.infer_calls`` and
 frame budget), ``serve.rows`` (the real rows of each budgeted call),
 ``serve.frames_decoded`` (budget x rows, padding rows included, of each
 budgeted call) and ``serve.frames_kept`` (the predicted lengths of the rows
-whose audio is returned: an escalated row's frames, and a saturated batch
-row's, are all decoded and none kept).
+whose audio is returned: the frames of a call at which a row saturated are
+all decoded and none kept).
 
 Every call runs under ``torch.inference_mode()`` on the engine's device:
 ``cuda`` unless ``device`` names another. On a CUDA device the budgeted calls
@@ -200,6 +208,25 @@ class TTSEngine:
         buckets = self._frame_buckets()
         return next((b for b in buckets if b >= want), buckets[-1])
 
+    def _next_budget(self, frames: int, y_len: int) -> int | None:
+        """The budget a row is made again at: the frame bucket after
+        ``frames`` if its predicted length ``y_len`` reached ``frames``
+        (counted in ``serve.escalations``), else None; None at the last
+        bucket too, where the row stands whatever its length."""
+        if y_len < frames:
+            return None
+        frames = next((b for b in self._frame_buckets() if b > frames), None)
+        if frames is not None:
+            count("serve.escalations")
+        return frames
+
+    def _rows(self, seq, lang, speaker_id, seed, scope_shift, duration) -> list[_Row]:
+        """A text's pieces (``_split_segments``) as rows, piece i seeded
+        seed + i."""
+        pieces = self._split_segments(seq, lang, self.TEXT_BUCKETS[-1])
+        return [_Row(s, la, speaker_id, seed + i, scope_shift, duration)
+                for i, (s, la) in enumerate(pieces)]
+
     def _split_segments(self, seq, lang, limit: int):
         """Split an over-long phoneme sequence at phrase boundaries (after
         punctuation, else at spaces, else hard) so every piece fits a text
@@ -254,36 +281,37 @@ class TTSEngine:
         x_lengths, sid, shifts = ints[ids.size:].view(3, nb)
         return x, t, x_lengths, sid, self._to_device(durations), shifts
 
-    def _calls(self, rows: list[_Row], fill: bool):
-        """The budgeted calls over ``rows``: (text bucket, frame budget, the
-        rows' indices, rows with padding) each. Rows are grouped by (text
-        bucket, first frame budget), in first-seen order. With ``fill`` a
-        group is one call padded up to a batch bucket (an oversize group runs
-        at its size); without, it is cut into batch buckets, largest first,
-        so that no call carries an empty row (5 rows: 4 + 1)."""
+    def _calls(self, rows: list[_Row], budgets: list[int], fill: bool):
+        """The budgeted calls over ``rows``, row i at frame budget
+        ``budgets[i]``: (text bucket, frame budget, the rows' indices, rows
+        with padding) each. Rows are grouped by (text bucket, budget), in
+        first-seen order, and cut into calls of at most the largest batch
+        bucket. With ``fill`` a group is full calls and the rest padded up to
+        a batch bucket (11 rows: 8 + 3 in a call of 4); without, it is cut
+        into batch buckets, largest first, so that no call carries an empty
+        row (5 rows: 4 + 1)."""
         groups: dict[tuple[int, int], list[int]] = {}
-        for i, row in enumerate(rows):
-            n = len(row.seq)
-            groups.setdefault((self._bucket(n), self._first_frames(n, row.duration)), []).append(i)
+        for i, (row, frames) in enumerate(zip(rows, budgets)):
+            groups.setdefault((self._bucket(len(row.seq)), frames), []).append(i)
         for (tx, frames), members in groups.items():
-            if fill:
-                n = len(members)
-                yield tx, frames, members, next((b for b in self.BATCH_BUCKETS if b >= n), n)
-                continue
             while members:
-                nb = max(b for b in self.BATCH_BUCKETS if b <= len(members))
+                n = len(members)
+                if fill:
+                    nb = next((b for b in self.BATCH_BUCKETS if b >= n), self.BATCH_BUCKETS[-1])
+                else:
+                    nb = max(b for b in self.BATCH_BUCKETS if b <= n)
                 yield tx, frames, members[:nb], nb
                 members = members[nb:]
 
     @torch.inference_mode()
-    def _infer_rows(self, rows: list[_Row], fill: bool) -> list[tuple]:
+    def _infer_rows(self, rows: list[_Row], budgets: list[int], fill: bool) -> list[tuple]:
         """Every budgeted call over ``rows`` (``_calls``) queued on the device
         before any host sync, each row drawing its noise from its own seed at
         its call's shapes; then every row's predicted length read back in one
-        copy. Returns, in row order, (frame budget, predicted length, audio
-        [budget x hop] on the device) of each row."""
+        copy. Returns, in row order, (predicted length, audio [budget x hop]
+        on the device) of each row."""
         calls = []
-        for tx, frames, members, nb in self._calls(rows, fill):
+        for tx, frames, members, nb in self._calls(rows, budgets, fill):
             seeds = [rows[i].seed for i in members] + [None] * (nb - len(members))
             with span("serve.noise"):
                 noise = self._noise(seeds, self._synth_shapes(tx, frames))
@@ -293,16 +321,38 @@ class TTSEngine:
                 wav, _, y_lens = self.model.infer(
                     x, t, xl, sid, noise=noise, **self._infer_kwargs(durations, shifts, frames))
             _count_infer(frames, len(members), nb - len(members))
-            calls.append((frames, members, wav, y_lens[: len(members)]))
+            calls.append((members, wav, y_lens[: len(members)]))
         if not calls:
             return []
         with span("serve.sync"):
-            lengths = iter(torch.cat([c[3] for c in calls]).tolist())  # the one host sync
+            lengths = iter(torch.cat([c[2] for c in calls]).tolist())  # the one host sync
         out: list = [None] * len(rows)
-        for frames, members, wav, _ in calls:
+        for members, wav, _ in calls:
             for r, i in enumerate(members):
-                out[i] = (frames, next(lengths), wav[r, :, 0])
+                out[i] = (next(lengths), wav[r, :, 0])
         return out
+
+    @torch.inference_mode()
+    def _budget_walk(self, rows: list[_Row], fill: bool) -> list[torch.Tensor]:
+        """Each row's audio on the device, its predicted length long: rounds
+        of ``_infer_rows``, the first over every row at its first budget,
+        each next over the rows that ``_next_budget`` moved on."""
+        budgets = [self._first_frames(len(row.seq), row.duration) for row in rows]
+        audio: list = [None] * len(rows)
+        todo = list(range(len(rows)))
+        while todo:
+            redo = []
+            done = self._infer_rows([rows[i] for i in todo], [budgets[i] for i in todo], fill)
+            for i, (y_len, wav) in zip(todo, done):
+                frames = self._next_budget(budgets[i], y_len)
+                if frames is None:
+                    count("serve.frames_kept", y_len)
+                    audio[i] = wav[: y_len * self.hop]
+                else:
+                    budgets[i] = frames
+                    redo.append(i)
+            todo = redo
+        return audio
 
     def _to_host(self, parts: list[torch.Tensor]) -> np.ndarray:
         """Audio pieces on the device, concatenated, to the host in one copy."""
@@ -312,32 +362,6 @@ class TTSEngine:
             return torch.cat(parts).float().cpu().numpy()
 
     @torch.inference_mode()
-    def _synth_segment(self, seq, lang, speaker_id, seed, scope_shift, duration, frames=None):
-        """One piece alone at batch 1, from the frame budget ``frames`` (by
-        default its first); the budget escalates through FRAME_BUCKETS while
-        the predicted length reaches it (a host sync each call). Returns the
-        piece's audio on the device."""
-        row = _Row(seq, lang, speaker_id, seed, scope_shift, duration)
-        tx = self._bucket(len(seq))
-        buckets = self._frame_buckets()
-        frames = frames or self._first_frames(len(seq), duration)
-        while True:
-            with span("serve.noise"):
-                noise = self._noise([seed], self._synth_shapes(tx, frames))
-            with span("serve.infer"):
-                x, t, xl, sid, durations, shifts = self._call_inputs([row], tx, 1)
-                wav, _, y_len = self.model.infer(
-                    x, t, xl, sid, noise=noise, **self._infer_kwargs(durations, shifts, frames))
-            with span("serve.sync"):
-                y_len = int(y_len[0])  # host sync: the budget decision needs it
-            _count_infer(frames)
-            if y_len < frames or frames == buckets[-1]:
-                break
-            count("serve.escalations")
-            frames = next(b for b in buckets if b > frames)
-        count("serve.frames_kept", y_len)
-        return wav[0, : y_len * self.hop, 0]
-
     def synthesize(
         self,
         text: str,
@@ -350,26 +374,12 @@ class TTSEngine:
 
         Never truncates: long inputs are split at phrase boundaries and the
         pieces concatenated, piece i drawing its noise from seed + i. The
-        pieces run as batched calls, all queued before one host sync."""
+        pieces run as batched calls, each round's queued before one host
+        sync."""
         count("serve.requests")
-        return self._synthesize(text, speaker_id, seed, scope_shift, duration)
-
-    @torch.inference_mode()
-    def _synthesize(self, text, speaker_id, seed, scope_shift, duration):
         seq, lang, phones = self.get_phoneme(text)
-        rows = [_Row(s, la, speaker_id, seed + i, scope_shift, duration)
-                for i, (s, la) in enumerate(self._split_segments(seq, lang, self.TEXT_BUCKETS[-1]))]
-        buckets = self._frame_buckets()
-        parts = []
-        for row, (frames, y_len, wav) in zip(rows, self._infer_rows(rows, fill=False)):
-            if y_len >= frames and frames < buckets[-1]:
-                # frame budget saturated: this row alone escalates
-                count("serve.escalations")
-                parts.append(self._synth_segment(*row, frames=next(b for b in buckets if b > frames)))
-            else:
-                count("serve.frames_kept", y_len)
-                parts.append(wav[: y_len * self.hop])
-        return phones, (self.sampling_rate, self._to_host(parts))
+        rows = self._rows(seq, lang, speaker_id, seed, scope_shift, duration)
+        return phones, (self.sampling_rate, self._to_host(self._budget_walk(rows, fill=False)))
 
     @torch.inference_mode()
     def synthesize_batch(self, requests: list[dict]):
@@ -379,16 +389,17 @@ class TTSEngine:
         seed, scope_shift, duration. Returns a list in request order whose
         entries are np.float32 waveforms, or the per-request Exception for
         entries that failed (a bad request never poisons its batchmates).
-        Requests are grouped by (text-bucket, frame-bucket), padded up to
-        BATCH_BUCKETS and run as one batch each, each row with its own
-        noise, duration and scope shift; every group's call is queued before
-        one host sync. Requests whose phoneme sequence exceeds the largest
-        text bucket, or whose frame budget saturates, take the
-        single-request path.
+        Every request's pieces (one, unless its phoneme sequence exceeds the
+        largest text bucket) are rows of one budget walk: grouped by
+        (text-bucket, frame-bucket), cut into calls of at most the largest
+        batch bucket and the rest padded up to BATCH_BUCKETS, each row with
+        its own noise, duration and scope shift, every call of a round
+        queued before one host sync. A request's audio is its pieces'
+        concatenated.
         """
         count("serve.requests", len(requests))
         results: list[np.ndarray | Exception | None] = [None] * len(requests)
-        rows, owners = [], []
+        rows, owners = [], []  # owners: (request, its first row, its rows)
         for i, req in enumerate(requests):
             try:
                 seq, lang, _ = self.get_phoneme(req["text"])
@@ -396,33 +407,16 @@ class TTSEngine:
                 # a bad request (e.g. untagged text) yields its exception
                 results[i] = e
                 continue
-            if len(seq) > self.TEXT_BUCKETS[-1]:
-                results[i] = self._synthesize_request(req)
-                continue
-            rows.append(_Row(seq, lang, int(req.get("speaker_id", 0)), int(req.get("seed", 0)),
-                             int(req.get("scope_shift", 0)), float(req.get("duration", 1.0))))
-            owners.append(i)
-        last = self._frame_buckets()[-1]
-        kept, parts = [], []
-        for i, (frames, y_len, wav) in zip(owners, self._infer_rows(rows, fill=True)):
-            if y_len >= frames and frames < last:
-                # frame budget saturated: redo via the escalating path
-                results[i] = self._synthesize_request(requests[i])
-            else:
-                count("serve.frames_kept", y_len)
-                kept.append(i)
-                parts.append(wav[: y_len * self.hop])
-        audio = np.split(self._to_host(parts), np.cumsum([len(p) for p in parts[:-1]]))
-        for i, a in zip(kept, audio):
-            results[i] = a
+            pieces = self._rows(seq, lang, int(req.get("speaker_id", 0)), int(req.get("seed", 0)),
+                                int(req.get("scope_shift", 0)), float(req.get("duration", 1.0)))
+            owners.append((i, len(rows), len(pieces)))
+            rows += pieces
+        parts = self._budget_walk(rows, fill=True)
+        audio = self._to_host(parts)
+        offsets = np.cumsum([0] + [len(p) for p in parts])
+        for i, first, n in owners:
+            results[i] = audio[offsets[first]: offsets[first + n]]
         return results
-
-    def _synthesize_request(self, req: dict) -> np.ndarray:
-        _, (_, audio) = self._synthesize(
-            req["text"], req.get("speaker_id", 0), req.get("seed", 0),
-            req.get("scope_shift", 0), req.get("duration", 1.0),
-        )
-        return audio
 
     def synthesize_chunked(
         self,
@@ -471,37 +465,28 @@ class TTSEngine:
         self, text, speaker_id, seed, scope_shift, duration, chunk_frames, overlap_frames
     ):
         count("serve.requests")
-        seq_all, lang_all, phones = self.get_phoneme(text)
-        segments = self._split_segments(seq_all, lang_all, self.TEXT_BUCKETS[-1])
-        return phones, self._chunk_iter(
-            segments, speaker_id, seed, scope_shift, duration, chunk_frames, overlap_frames
-        )
+        seq, lang, phones = self.get_phoneme(text)
+        rows = self._rows(seq, lang, speaker_id, seed, scope_shift, duration)
+        return phones, self._chunk_iter(rows, chunk_frames, overlap_frames)
 
     @torch.inference_mode()
-    def _chunk_iter(
-        self, segments, speaker_id, seed, scope_shift, duration, chunk_frames, overlap_frames
-    ):
-        for seg_i, (seq, lang) in enumerate(segments):
-            tx = self._bucket(len(seq))
-            row = _Row(seq, lang, speaker_id, seed + seg_i, scope_shift, duration)
+    def _chunk_iter(self, rows: list[_Row], chunk_frames, overlap_frames):
+        for row in rows:
+            tx = self._bucket(len(row.seq))
             x, t, xl, sid, _, _ = self._call_inputs([row], tx, 1)
-            buckets = self._frame_buckets()
-            frames = self._first_frames(len(seq), duration)
-            while True:
+            frames = self._first_frames(len(row.seq), row.duration)
+            while frames is not None:
                 with span("serve.noise"):
-                    noise = self._noise([seed + seg_i], self._synth_shapes(tx, frames))
+                    noise = self._noise([row.seed], self._synth_shapes(tx, frames))
                 with span("serve.infer"):
                     dec_inputs, _, y_lengths, _ = self.model.infer_pre_decoder(
                         x, t, xl, sid, noise=noise,
-                        **self._infer_kwargs(duration, scope_shift, frames)
+                        **self._infer_kwargs(row.duration, row.scope_shift, frames)
                     )
                 with span("serve.sync"):
                     total = int(y_lengths[0])
                 _count_infer(frames)
-                if total < frames or frames == buckets[-1]:
-                    break
-                count("serve.escalations")
-                frames = next(b for b in buckets if b > frames)
+                frames = self._next_budget(frames, total)
             count("serve.frames_kept", total)
             dec_inputs = dec_inputs[0]  # [T, C], stays on the device
 
