@@ -1,16 +1,20 @@
 """The serving engine's CUDA graphs of ``SynthesizerTrn.infer``
-(``vits_torch/serve/graphs.py``) against the eager call, and the reader of
+(``vits_torch/serve/graphs.py``: a stage to the predicted lengths, one host
+read, then the frame work at the fewest frames F of the ladder that hold
+the call's rows) against the eager call at F, and the reader of
 ``engine.graph_hit_share.long``.
 
 On the card, at the full CJE configuration (``configs/config_cje.yaml``,
-PyTorch's init under a fixed seed, ``max_frames`` 1000): a replay gives the
-eager call's ``wav`` and ``y_lengths`` bit for bit at every batch-1 key
-(4 text buckets x 3 frame buckets, among them every key a long paragraph's
-pieces reach), for a 4-row ``synthesize_batch`` and for paragraphs whose
-pieces go out as calls of 8, 4, 2 and 1 rows; captures count the
-distinct keys and replays the calls after them; weights loaded in place
-after a capture are seen by the next replay; two threads synthesizing at
-once each get their eager audio. The card tests run where there is no JAX:
+PyTorch's init under a fixed seed, ``max_frames`` 1000): a replay decodes
+the sized F and gives the eager call's ``wav`` and ``y_lengths`` at
+``max_frames`` F bit for bit at every batch-1 budget key (4 text buckets x
+3 frame budgets, among them every key a long paragraph's pieces reach), for
+a 4-row ``synthesize_batch`` and for paragraphs whose pieces go out as calls
+of 8, 4, 2 and 1 rows; captures count the distinct keys of each stage and
+replays the calls that captured neither, so that the same calls again are
+all replays; weights loaded in place after a capture are seen by the next
+replay of each stage; two threads synthesizing at once each get the eager
+audio at the sized budgets. The card tests run where there is no JAX:
 ``python -m pytest --noconftest tests/test_torch_infer_graphs.py -m cuda``.
 """
 
@@ -25,7 +29,7 @@ import pytest
 import torch
 
 from vits_torch.serve.engine import TTSEngine
-from vits_torch.serve.graphs import InferGraphs
+from vits_torch.serve.graphs import InferGraphs, sized_frames
 from vits_torch.text.symbols import symbols
 from vits_torch.utils import profiling
 
@@ -81,29 +85,101 @@ def _call(engine, tx, frames, seed):
     return args, dict(noise=noise, **engine._infer_kwargs(*controls, frames))
 
 
-def _eager(engine, args, kwargs):
-    return engine.model._infer(*args, **kwargs)
+def _eager(model, args, kwargs, frames=None):
+    """The eager call at ``max_frames`` ``frames`` (the call's budget if
+    None), its prior noise cut to those frames."""
+    if frames is not None:
+        noise = dict(kwargs["noise"], eps=kwargs["noise"]["eps"][:, :frames])
+        kwargs = dict(kwargs, noise=noise, max_frames=frames)
+    return model._infer(*args, **kwargs)
+
+
+def _sized(model, args, kwargs):
+    """The eager call at the budget a graphed call sizes: the fewest frames
+    of the ladder under its budget that hold its rows' predicted lengths."""
+    y_len = _eager(model, args, kwargs)[2]
+    return _eager(model, args, kwargs, sized_frames(int(y_len.max()), kwargs["max_frames"]))
+
+
+def _eager_sized_infer(model):
+    """An ``infer`` for ``model`` that runs every budgeted call eagerly at
+    the budget its graphs would size (``_sized``)."""
+    def infer(*args, **kwargs):
+        return _sized(model, args, kwargs)
+    return infer
 
 
 def _same(got, want):
     wav, _, y_len = got
     wav_e, _, y_len_e = want
     assert torch.equal(y_len, y_len_e)
+    assert wav.shape == wav_e.shape
     assert torch.equal(wav, wav_e), (wav - wav_e).abs().max().item()
+
+
+def _frames(engine, wav) -> int:
+    return wav.shape[1] // engine.hop
+
+
+def _counts(calls) -> tuple[int, int]:
+    """(captures, replays) of graphed calls at ``calls``' keys, in order:
+    (rows, text bucket, budget, sized frames) each. A stage captures at its
+    key's first call: stage 1 at (rows, text bucket, budget), stage 2 at
+    (rows, frames); a call that captured neither is a replay."""
+    first, second = set(), set()
+    captures = replays = 0
+    for rows, tx, budget, frames in calls:
+        new = [(rows, tx, budget) not in first, (rows, frames) not in second]
+        first.add((rows, tx, budget))
+        second.add((rows, frames))
+        captures += sum(new)
+        replays += not any(new)
+    return captures, replays
+
+
+def _recorded(engine):
+    """Wraps ``engine.model.infer`` (undo with ``del engine.model.infer``):
+    the list it fills with each call's (rows, text bucket, budget, frames
+    decoded)."""
+    calls, original = [], engine.model.infer
+
+    def infer(x, *args, **kwargs):
+        out = original(x, *args, **kwargs)
+        calls.append((*x.shape, kwargs["max_frames"], _frames(engine, out[0])))
+        return out
+
+    engine.model.infer = infer
+    return calls
 
 
 @pytest.mark.cuda
 def test_replay_equals_eager_at_every_batch1_key(engine, graphs):
     keys = [(tx, f) for tx in engine.TEXT_BUCKETS for f in engine._frame_buckets()]
     assert len(keys) == 12
+    calls = []
     with torch.inference_mode():
-        for i, (tx, frames) in enumerate(keys):
+        for i, (tx, budget) in enumerate(keys):
             for seed in (10 * i, 10 * i + 1):  # the capture's call, then a replay
-                args, kwargs = _call(engine, tx, frames, seed)
-                _same(engine.model.infer(*args, **kwargs), _eager(engine, args, kwargs))
+                args, kwargs = _call(engine, tx, budget, seed)
+                got = engine.model.infer(*args, **kwargs)
+                frames = _frames(engine, got[0])
+                assert frames == sized_frames(int(got[2].max()), budget)
+                _same(got, _eager(engine.model, args, kwargs, frames))
+                calls.append((1, tx, budget, frames))
+        assert any(f < budget for _, _, budget, f in calls)
+        captures, replays = _counts(calls)
+        counters = profiling.snapshot()["counters"]
+        assert counters["serve.graph_captures"] == captures
+        assert counters.get("serve.graph_replays", 0) == replays
+        # the same calls again: every one a replay of both stages
+        profiling.reset()
+        for i, (tx, budget) in enumerate(keys):
+            for seed in (10 * i, 10 * i + 1):
+                args, kwargs = _call(engine, tx, budget, seed)
+                engine.model.infer(*args, **kwargs)
     counters = profiling.snapshot()["counters"]
-    assert counters["serve.graph_captures"] == len(keys)
-    assert counters["serve.graph_replays"] == len(keys)
+    assert counters["serve.graph_replays"] == 2 * len(keys)
+    assert "serve.graph_captures" not in counters
 
 
 @pytest.mark.cuda
@@ -114,75 +190,81 @@ def test_batch_of_four_rows_equals_eager(engine, graphs):
         ns = [len(engine.get_phoneme(r["text"])[0]) for r in reqs]
     keys = {(engine._bucket(n), engine._first_frames(n, r["duration"])) for n, r in zip(ns, reqs)}
     assert len(keys) == 1, keys  # one group: one 4-row call
-    first, again = engine.synthesize_batch(reqs), engine.synthesize_batch(reqs)
+    calls = _recorded(engine)
+    try:
+        first, again = engine.synthesize_batch(reqs), engine.synthesize_batch(reqs)
+    finally:
+        del engine.model.infer
     engine.model.infer_graphs = None
-    eager = engine.synthesize_batch(reqs)
+    engine.model.infer = _eager_sized_infer(engine.model)
+    try:
+        eager = engine.synthesize_batch(reqs)
+    finally:
+        del engine.model.infer
     for a, b, e in zip(first, again, eager):
         np.testing.assert_array_equal(a, e)
         np.testing.assert_array_equal(b, e)
+    assert len(calls) == 2 and calls[0] == calls[1] and calls[0][0] == 4
     counters = profiling.snapshot()["counters"]
-    assert counters["serve.graph_captures"] >= 1 and counters["serve.graph_replays"] >= 1
-    # three rounds of the same calls; every call of the two graphed ones took the cache
-    graphed = counters["serve.graph_captures"] + counters["serve.graph_replays"]
-    assert 3 * graphed == 2 * counters["serve.infer_calls"]
+    # the first call captured both stages, the second replayed both
+    assert counters["serve.graph_captures"] == 2 and counters["serve.graph_replays"] == 1
+    assert counters["serve.infer_calls"] == 3
 
 
 @pytest.mark.cuda
 def test_paragraph_replays_equal_its_eager_batched_calls(engine, graphs):
     """A paragraph's pieces go out as batched calls, all queued before one
-    host sync: replayed, its audio is that of the same calls run eagerly, bit
-    for bit; the keys of 8, 4, 2 and 1 rows at (384, 1000) are captured once
-    and replayed after."""
-    keys = []
-    original = engine.model.infer
-
-    def infer(x, *args, **kwargs):
-        keys.append((*x.shape, kwargs["max_frames"]))
-        return original(x, *args, **kwargs)
-
-    engine.model.infer = infer
+    host sync: replayed, its audio is that of the same calls run eagerly at
+    the budgets they sized, bit for bit; the keys of 8, 4, 2 and 1 rows at
+    (384, 1000) are captured once a stage and replayed after."""
+    keys = _recorded(engine)
     try:
         graphed = [[engine.synthesize(text, 2, seed=21 + i)[1][1] for i, text in enumerate(BATCHED)]
                    for _ in range(2)]
-        replayed = list(keys)
-        engine.model.infer_graphs = None
+    finally:
+        del engine.model.infer
+    engine.model.infer_graphs = None
+    engine.model.infer = _eager_sized_infer(engine.model)
+    try:
         eager = [engine.synthesize(text, 2, seed=21 + i)[1][1] for i, text in enumerate(BATCHED)]
     finally:
         del engine.model.infer
-    assert {(rows, 384, 1000) for rows in (8, 4, 2, 1)} <= set(replayed)
-    assert len(replayed) == 2 * len(keys[len(replayed):]) == 8  # (8 + 2 + 1) + (4), twice
+    assert {(rows, 384, 1000) for rows in (8, 4, 2, 1)} <= {k[:3] for k in keys}
+    assert len(keys) == 8 and keys[:4] == keys[4:]  # (8 + 2 + 1) + (4), twice
+    assert any(k[3] < k[2] for k in keys)
     for got in graphed:
         for a, e in zip(got, eager):
             np.testing.assert_array_equal(a, e)
+    captures, replays = _counts(keys)
     counters = profiling.snapshot()["counters"]
-    assert counters["serve.graph_captures"] == len(set(replayed))
-    assert counters["serve.graph_replays"] == len(replayed) - len(set(replayed))
+    assert counters["serve.graph_captures"] == captures
+    assert counters["serve.graph_replays"] == replays >= 4
     assert counters["serve.rows"] == 3 * (11 + 4)
 
 
 @pytest.mark.cuda
 def test_counts_a_capture_a_key_and_a_replay_a_later_call(engine, graphs):
-    keys = []
-    original = engine.model.infer
-
-    def infer(x, *args, **kwargs):
-        keys.append((tuple(x.shape), kwargs["max_frames"]))
-        return original(x, *args, **kwargs)
-
-    engine.model.infer = infer
+    keys = _recorded(engine)
     try:
         for seed in (1, 2, 3):
             engine.synthesize(PARAGRAPH, 1, seed=seed)
     finally:
         del engine.model.infer
+    captures, replays = _counts(keys)
     counters = profiling.snapshot()["counters"]
     assert len(keys) == counters["serve.infer_calls"] >= 6
-    assert counters["serve.graph_captures"] == len(set(keys)) >= 1
-    assert counters.get("serve.graph_replays", 0) == len(keys) - len(set(keys))
+    assert counters["serve.graph_captures"] == captures >= 2
+    assert counters.get("serve.graph_replays", 0) == replays
+    assert counters["serve.frames_decoded"] == sum(r * f for r, _, _, f in keys)
+    assert counters.get("serve.sized_calls", 0) == sum(f < m for _, _, m, f in keys)
 
 
 @pytest.mark.cuda
 def test_weights_loaded_in_place_after_capture_are_replayed(engine, graphs):
+    """Weights moved in place after the capture: first those of the frame
+    stage alone (the flow and the decoder; the lengths, and so the sized
+    frames, stay), then the others; each time the next call replays both
+    stages and gives the eager call with the moved weights."""
     model = engine.model
     with torch.inference_mode():
         saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -191,22 +273,36 @@ def test_weights_loaded_in_place_after_capture_are_replayed(engine, graphs):
         g = torch.Generator(device=engine.device).manual_seed(7)
         moved = {k: v + 0.02 * v.abs().mean() * torch.randn(v.shape, generator=g, device=v.device)
                  if v.is_floating_point() else v for k, v in saved.items()}
+        frame_stage = ("flow.", "waveform_decoder.")
         try:
-            model.load_state_dict(moved)
+            model.load_state_dict({k: moved[k] if k.startswith(frame_stage) else v
+                                   for k, v in saved.items()})
             after = model.infer(*args, **kwargs)
-            _same(after, _eager(engine, args, kwargs))
-            assert not torch.equal(after[0], before[0])
+            _same(after, _sized(model, args, kwargs))
+            assert torch.equal(after[2], before[2]) and not torch.equal(after[0], before[0])
+            replays = profiling.snapshot()["counters"]["serve.graph_replays"]
+            assert replays == 1
+            model.load_state_dict(moved)
+            again = model.infer(*args, **kwargs)
+            _same(again, _sized(model, args, kwargs))
         finally:
             model.load_state_dict(saved)
         _same(model.infer(*args, **kwargs), before)
-    assert profiling.snapshot()["counters"]["serve.graph_captures"] == 1
+    # before's call captured both stages; a moved length may have sized a new stage 2
+    counters = profiling.snapshot()["counters"]
+    assert 2 <= counters["serve.graph_captures"] <= 3
+    assert counters["serve.graph_replays"] == 5 - counters["serve.graph_captures"]
 
 
 @pytest.mark.cuda
 def test_two_threads_get_their_eager_audio(engine, graphs):
     jobs = [(PARAGRAPH, 0, 11), (SHORT[0] + SHORT[1], 3, 12), (SHORT[2], 2, 13), (PARAGRAPH, 4, 14)]
     engine.model.infer_graphs = None
-    eager = [engine.synthesize(text, spk, seed=seed)[1][1] for text, spk, seed in jobs]
+    engine.model.infer = _eager_sized_infer(engine.model)
+    try:
+        eager = [engine.synthesize(text, spk, seed=seed)[1][1] for text, spk, seed in jobs]
+    finally:
+        del engine.model.infer
     engine.model.infer_graphs = graphs
     got = {}
     start = threading.Barrier(2)

@@ -11,8 +11,10 @@ its ``infer`` audio bit for bit; the pitchless model refuses training, the
 yin decoder and voice conversion.
 
 The card tests (skipped without one) replay the pitchless model's ``infer``
-from a CUDA graph at the configuration's full width against the eager call
-at 1 and 4 rows, with no host read (``torch.cuda.set_sync_debug_mode``):
+from the CUDA graphs of its two stages at the configuration's full width
+against the eager call at the frames the replay sized, at 1 and 4 rows: the
+eager call and the decoder's head read nothing back to the host, the replay
+reads one value, its longest length (``torch.cuda.set_sync_debug_mode``):
 ``python -m pytest --noconftest tests/test_torch_mb_istft.py -m cuda``.
 """
 
@@ -308,20 +310,32 @@ def _card_call(model, rows: int, seed: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 4])
 def test_replay_is_the_eager_call_with_no_host_read(card_model, rows):
+    import warnings
+
+    from vits_torch.serve.graphs import sized_frames
+
     model = card_model
     with torch.inference_mode():
         model.infer(*_card_call(model, rows, 1)[0], **_card_call(model, rows, 1)[1])  # capture
         args, kw = _card_call(model, rows, 2)
-        torch.cuda.set_sync_debug_mode("error")
+        frames = sized_frames(int(model._infer(*args, **kw)[2].max()), 1000)
+        eager_kw = dict(kw, max_frames=frames, noise=dict(kw["noise"],
+                                                          eps=kw["noise"]["eps"][:, :frames]))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
         try:
-            got = model.infer(*args, **kw)  # a replay
-            want = model._infer(*args, **kw)
+            with warnings.catch_warnings(record=True) as synced:
+                warnings.simplefilter("always")
+                got = model.infer(*args, **kw)  # a replay
+            torch.cuda.set_sync_debug_mode("error")
+            want = model._infer(*args, **eager_kw)
             bands = model.waveform_decoder.istft(
                 torch.rand(rows, 4, 9, 101, device="cuda"), torch.rand(rows, 4, 9, 101,
                                                                        device="cuda"))
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    assert len([w for w in synced if "synchroniz" in str(w.message)]) == 1, synced
     assert bands.shape == (rows, 4, 400)
-    assert got[0].shape == (rows, 1000 * 256, 1)
+    assert got[0].shape == (rows, frames * 256, 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -9,7 +9,9 @@ Every entry point of the JAX model is ported here:
     decode -> yingram of the output.
   * ``infer``: ``infer_pre_decoder`` (text encoder, SDP reverse,
     ``_expand_and_flow``) then ``infer_decode_chunk``; on the card, replayed
-    from the serving engine's CUDA graphs (``infer_graphs``) where it sets them.
+    from the serving engine's CUDA graphs (``infer_graphs``) where it sets them,
+    in two stages: ``_infer_text`` (to the predicted lengths and the expanded
+    prior) and ``_infer_frames`` (the rest, at the frames the rows need).
   * the staged latency-control API: ``infer_pre_lr`` (text encoder, SDP
     reverse), ``infer_lr`` (length regulation), ``infer_post_lr_pre_decoder``
     (prior sample, reverse flow, scope crop), then ``infer_decode_chunk``.
@@ -434,14 +436,20 @@ class SynthesizerTrn(nn.Module):
         w_ceil, _, m_p, logs_p, x_mask, g = self._durations(
             x, t, x_lengths, sid, noise, generator, length_scale, noise_scale_w
         )
-        y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1).to(torch.int32)
-        y_lengths = torch.clamp(y_lengths, max=max_frames)
+        y_lengths = self._lengths(w_ceil, max_frames)
         eps = self._noise(noise, "eps", (x.shape[0], max_frames, self.inter_channels), generator)
         decoder_inputs, y_mask, aux = self._expand_and_flow(
             w_ceil[:, 0], m_p, logs_p, x_mask, g, eps.transpose(1, 2), noise_scale,
             max_frames, scope_shift,
         )
         return decoder_inputs, y_mask, y_lengths, aux, g
+
+    @staticmethod
+    def _lengths(w_ceil, max_frames):
+        """The predicted frames of each row, [B] int32: the sum of w_ceil
+        [B, 1, T_x], at least 1 and at most ``max_frames``."""
+        y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1).to(torch.int32)
+        return torch.clamp(y_lengths, max=max_frames)
 
     def _length_regulate(self, w_ceil, m_p, logs_p, x_mask, max_frames):
         """Expand the prior over frames, NCL: w_ceil [B, T_x]; m_p, logs_p
@@ -503,10 +511,13 @@ class SynthesizerTrn(nn.Module):
     ):
         """Text -> (waveform [B, max_frames * hop, 1], y_mask [B, max_frames,
         1], y_lengths [B]). With ``infer_graphs`` set, a call it takes is
-        replayed from a CUDA graph of this call at its shape."""
+        replayed from CUDA graphs of its two stages and decodes F <=
+        ``max_frames`` frames, the fewest of its ladder that hold every row's
+        predicted length (``serve/graphs.py``): the waveform is [B, F * hop,
+        1] and y_mask [B, F, 1]."""
         graphs = self.infer_graphs
         if graphs is not None and graphs.takes(x, noise, generator, length_scale, scope_shift):
-            return graphs(self._infer, x, t, x_lengths, sid, noise, length_scale, scope_shift,
+            return graphs(self, x, t, x_lengths, sid, noise, length_scale, scope_shift,
                           noise_scale=noise_scale, noise_scale_w=noise_scale_w,
                           max_frames=max_frames)
         return self._infer(
@@ -526,6 +537,36 @@ class SynthesizerTrn(nn.Module):
         with span("decode"):
             wav = self.waveform_decoder(dec_in, g=g)
         return wav.transpose(1, 2), y_mask.transpose(1, 2), y_lengths
+
+    def _infer_text(self, x, t, x_lengths, sid, sdp_noise, length_scale, *, noise_scale_w,
+                    max_frames):
+        """The first stage of a sized call (``serve/graphs.py``): text
+        encoder, SDP reverse on ``sdp_noise`` [B, T_x, 2], the predicted
+        lengths and the prior expanded over ``max_frames`` -> (m_p, logs_p
+        [B, max_frames, C], y_lengths [B] int32, g [B, gin, 1] or None)."""
+        w_ceil, _, m_p, logs_p, x_mask, g = self._durations(
+            x, t, x_lengths, sid, {"sdp_noise": sdp_noise}, None, length_scale, noise_scale_w
+        )
+        m_p_exp, logs_p_exp, _ = self._length_regulate(
+            w_ceil[:, 0], m_p, logs_p, x_mask, max_frames)
+        return (m_p_exp.transpose(1, 2), logs_p_exp.transpose(1, 2),
+                self._lengths(w_ceil, max_frames), g)
+
+    def _infer_frames(self, m_p, logs_p, y_lengths, g, eps, scope_shift, *, noise_scale):
+        """The second stage at F = ``m_p.shape[1]`` frames, F at least every
+        row's length: prior sample on ``eps`` [B, F, C], reverse flow, scope
+        crop, decoder -> (waveform [B, F * hop, 1], y_mask [B, F, 1]). On
+        ``_infer_text``'s outputs cut to their first F frames it is ``_infer``
+        at ``max_frames`` F, bit for bit: a frame of the expanded prior is one
+        token's row of m_p or logs_p, or zeros, at any ``max_frames``."""
+        y_mask = sequence_mask(y_lengths, m_p.shape[1]).unsqueeze(1).to(m_p.dtype)
+        dec_in, _, _ = self._flow_and_crop(
+            m_p.transpose(1, 2), logs_p.transpose(1, 2), y_mask, g, eps.transpose(1, 2),
+            noise_scale, scope_shift,
+        )
+        with span("decode"):
+            wav = self.waveform_decoder(dec_in, g=g)
+        return wav.transpose(1, 2), y_mask.transpose(1, 2)
 
     # -- staged latency-control API ----------------------------------------
 

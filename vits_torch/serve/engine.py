@@ -13,7 +13,8 @@ Determinism: each request draws its noise at its own row shape from one
 ``torch.Generator(device).manual_seed(seed)`` (the JAX engine's per-row
 ``PRNGKey(seed)``), in a fixed order, and a batch stacks the rows, so a
 request's audio does not depend on its batchmates beyond the summation
-order of the batched kernels. ``noise_fn(seed, shapes)`` replaces those
+order of the batched kernels (and, on a CUDA device, beyond the frames its
+call decodes: see below). ``noise_fn(seed, shapes)`` replaces those
 draws: ``shapes`` maps the model's ``noise`` names to shapes (``sdp_noise``
 and ``eps`` for synthesis, ``eps_spec`` and ``eps_yin`` for a VC window) and
 it returns float32 arrays of those shapes under those names.
@@ -31,9 +32,15 @@ saturates nothing is one round. ``synthesize`` cuts each group into batch
 buckets, largest first, so that no call carries an empty row (a text of one
 piece is one call at one row); ``synthesize_batch`` cuts each group into
 full calls of the largest batch bucket and pads the rest up to a batch
-bucket. The kept audio comes to the host in one copy. The chunked and
-streaming paths need the pre-decoder alone and walk the budgets a piece at a
-time, at batch 1.
+bucket. A call decodes at or below its budget: eagerly at the budget, and
+on a CUDA device at the fewest frames of a ladder of multiples of 128 that
+hold its rows' predicted lengths (``serve/graphs.py``; one host read of
+the longest inside each call), so that a row's last frames, within the
+decoder's reach of that size, depend on its longest batchmate's length.
+Rows, groups, noise shapes and escalations follow the budget alone. The
+kept audio comes to the host in one copy. The chunked and streaming paths
+need the pre-decoder alone and walk the budgets a piece at a time, at
+batch 1.
 
 Tracing (``utils/profiling.py``, live while tracing is on): spans
 ``serve.g2p`` (``get_phoneme``), ``serve.noise``, ``serve.infer`` (a call's
@@ -44,18 +51,22 @@ and ``serve.d2h`` (the audio to the host); counters ``serve.requests``
 and requests of ``synthesize_batch``), ``serve.infer_calls`` and
 ``serve.escalations`` (budgeted calls, and rows made again at a larger
 frame budget), ``serve.rows`` (the real rows of each budgeted call),
-``serve.frames_decoded`` (budget x rows, padding rows included, of each
-budgeted call) and ``serve.frames_kept`` (the predicted lengths of the rows
-whose audio is returned: the frames of a call at which a row saturated are
-all decoded and none kept).
+``serve.frames_decoded`` (the frames decoded x rows, padding rows included,
+of each budgeted call, read from its audio's length),
+``serve.sized_calls`` (budgeted calls decoded below their budget) and
+``serve.frames_kept`` (the predicted lengths of the rows whose audio is
+returned: the frames of a call at which a row saturated are all decoded and
+none kept).
 
 Every call runs under ``torch.inference_mode()`` on the engine's device:
 ``cuda`` unless ``device`` names another. On a CUDA device the budgeted calls
 (``synthesize``'s and ``synthesize_batch``'s calls) are replayed from
-CUDA graphs captured at each (rows, text bucket, frame bucket) on its first
-use (``serve/graphs.py``; counters ``serve.graph_captures`` and
-``serve.graph_replays``); duration and scope shift go in as [rows] tensors,
-so one graph serves them all. Elsewhere every call runs eagerly.
+CUDA graphs of two stages, captured on first use: up to the predicted
+lengths at each (rows, text bucket, frame budget), then the frame work at
+each (rows, sized frames) (``serve/graphs.py``; counters
+``serve.graph_captures`` and ``serve.graph_replays``); duration and scope
+shift go in as [rows] tensors, so one graph serves them all. Elsewhere every
+call runs eagerly.
 ``enable_persistent_cache`` of the JAX engine (XLA's compile cache) has no
 counterpart: eager PyTorch compiles nothing.
 
@@ -90,12 +101,15 @@ def _seed(seed) -> int:
     return int(seed) & 0xFFFFFFFF
 
 
-def _count_infer(frames: int, rows: int = 1, empty: int = 0) -> None:
-    """One budgeted model call at a budget of ``frames`` over ``rows`` real
-    rows and ``empty`` padding rows."""
+def _count_infer(frames: int, rows: int = 1, empty: int = 0, budget: int | None = None) -> None:
+    """One budgeted model call that decoded ``frames`` over ``rows`` real
+    rows and ``empty`` padding rows, at a budget of ``budget`` (``frames``
+    if not given): a call decoded below its budget is a sized call."""
     count("serve.infer_calls")
     count("serve.rows", rows)
     count("serve.frames_decoded", frames * (rows + empty))
+    if budget is not None and frames < budget:
+        count("serve.sized_calls")
 
 
 class _Row(NamedTuple):
@@ -308,8 +322,10 @@ class TTSEngine:
         """Every budgeted call over ``rows`` (``_calls``) queued on the device
         before any host sync, each row drawing its noise from its own seed at
         its call's shapes; then every row's predicted length read back in one
-        copy. Returns, in row order, (predicted length, audio [budget x hop]
-        on the device) of each row."""
+        copy. Returns, in row order, (predicted length, audio on the device)
+        of each row: the audio of the frames its call decoded, at most its
+        budget x hop samples (``serve/graphs.py`` decodes the fewest frames
+        that hold the call's rows)."""
         calls = []
         for tx, frames, members, nb in self._calls(rows, budgets, fill):
             seeds = [rows[i].seed for i in members] + [None] * (nb - len(members))
@@ -320,7 +336,7 @@ class TTSEngine:
                     [rows[i] for i in members], tx, nb)
                 wav, _, y_lens = self.model.infer(
                     x, t, xl, sid, noise=noise, **self._infer_kwargs(durations, shifts, frames))
-            _count_infer(frames, len(members), nb - len(members))
+            _count_infer(wav.shape[1] // self.hop, len(members), nb - len(members), frames)
             calls.append((members, wav, y_lens[: len(members)]))
         if not calls:
             return []
