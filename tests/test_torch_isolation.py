@@ -33,6 +33,7 @@ def _port_sources():
         ROOT / "tools" / "time_phases.py",
         ROOT / "tests" / "_torch_ranks.py",
         ROOT / "tests" / "test_torch_mb_istft.py",
+        ROOT / "tests" / "test_torch_mb_istft_train.py",
         ROOT / "examples" / "quickstart_synthetic_torch.py",
         ROOT / "examples" / "serve_batched_torch.py",
     ]

@@ -7,21 +7,26 @@ decoder, ``infer`` at one and two rows, ``TTSEngine.synthesize`` over a
 split paragraph, the chunked and streaming paths against the whole call;
 a configuration without the new keys builds the PITS model as the frozen
 reference of it (``perfbench/reference/models/synthesizer.py``) and gives
-its ``infer`` audio bit for bit; the pitchless model refuses training, the
-yin decoder and voice conversion.
+its ``infer`` audio bit for bit; the pitchless model refuses the yin decoder
+and voice conversion (its training is ``tests/test_torch_mb_istft_train.py``'s).
 
 The card tests (skipped without one) replay the pitchless model's ``infer``
 from the CUDA graphs of its two stages at the configuration's full width
 against the eager call at the frames the replay sized, at 1 and 4 rows: the
 eager call and the decoder's head read nothing back to the host, the replay
-reads one value, its longest length (``torch.cuda.set_sync_debug_mode``):
-``python -m pytest --noconftest tests/test_torch_mb_istft.py -m cuda``.
+reads one value, its longest length (``torch.cuda.set_sync_debug_mode``).
+One float32 pitchless ``train_step`` at the test widths on the card matches
+the same step on the CPU, and the step under bfloat16 autocast does not.
+``python -m pytest --noconftest
+tests/test_torch_mb_istft.py -m cuda``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import statistics
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +44,7 @@ from vits_torch.serve.engine import TTSEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIG = ROOT / "perfbench" / "configs" / "ljs_mbistft.json"
+TRAIN_CONFIG = ROOT / "perfbench" / "configs" / "ljs_mbistft_train.json"
 TINY = dict(inter_channels=96, hidden_channels=48, filter_channels=64, n_layers=1,
             resblock_kernel_sizes=[3, 5], resblock_dilation_sizes=[[1, 3], [1, 3]],
             upsample_initial_channel=32, posterior_layers=2, flow_n_flows=1,
@@ -227,11 +233,8 @@ def test_pitchless_model_refuses_what_needs_the_pitch_path(pair, engine):
     assert not [n for n in names if n.startswith(("pitch_encoder.", "yin_decoder.", "emb_g."))]
     assert "text_encoder.emb_t.weight" not in names
     z = torch.zeros(1, 8, 1)
-    with pytest.raises(ValueError, match="pitch path"):
-        prog(torch.ones(1, 4, dtype=torch.int64), torch.zeros(1, 4, dtype=torch.int64),
-             torch.tensor([4]), torch.zeros(1, 8, 513), torch.tensor([8]), torch.zeros(1, 8, 80))
-    with pytest.raises(ValueError, match="pitch path"):
-        prog.draw_noise(1, 4, 8)
+    # it trains (tests/test_torch_mb_istft_train.py): its draws have no pitch keys
+    assert set(prog.draw_noise(1, 4, 8)) == {"eps_spec", "e_q", "slice_u"}
     with pytest.raises(ValueError, match="pitch path"):
         prog.yin_dec_infer(z, z)
     with pytest.raises(ValueError, match="pitch path"):
@@ -339,3 +342,101 @@ def test_replay_is_the_eager_call_with_no_host_read(card_model, rows):
     assert got[0].shape == (rows, frames * 256, 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _tiny_train_parts(device, path, seed: int = 0):
+    """The pitchless model at the CPU tests' widths, the probe MPD + MSD, the
+    benchmark's seeded weights, a train state and one batch with its draws,
+    on ``device``; ``seed`` varies the weights and the batch."""
+    from perfbench.checks import both_shapes
+    from perfbench.drivers.train_step_mbistft import make_weights
+    from vits_torch.training.step import create_train_state
+    from vits_torch.training.train import build_discriminator
+
+    hps = load_hparams(str(path))
+    dev = torch.device(device)
+    model = build_synthesizer(hps, device=dev)
+    disc = build_discriminator(hps, False, dev)
+    w = make_weights(both_shapes(model, disc), SEED + seed, "cpu")
+    weights.load(model, {k[2:]: v.to(dev) for k, v in w.items() if k.startswith("g.")})
+    weights.load(disc, {k[2:]: v.to(dev) for k, v in w.items() if k.startswith("d.")})
+    for m in model.modules():  # dropout off: the two devices draw different masks
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    g = torch.Generator().manual_seed(7 + seed)
+    b, t_x, t_y = 2, 48, 64
+    x = torch.randint(1, 71, (b, t_x), generator=g)
+    x[:, ::2] = 0
+    n = torch.arange(t_y * 256)
+    wav = 0.4 * torch.sin(2 * math.pi * 180.0 * n / 22050)[None].repeat(b, 1) \
+        + 0.02 * torch.randn(b, t_y * 256, generator=g)
+    from vits_torch.ops.stft import spectrogram
+
+    batch = {"x": x, "x_lengths": torch.tensor([48, 37]), "spec": spectrogram(wav, 1024, 256, 1024),
+             "spec_lengths": torch.tensor([64, 51]), "wav": wav[:, :, None]}
+    noise = {"eps_spec": torch.randn(b, t_y, 96, generator=g),
+             "e_q": torch.randn(b, t_x, 2, generator=g), "slice_u": torch.rand(b, generator=g)}
+    state = create_train_state(model, disc, hps, steps_per_epoch=100)
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
+    return state, hps, to(batch), to(noise)
+
+
+def tiny_train_config(tmp_path) -> Path:
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    cfg["model"].update(TINY, discriminator_size="probe")
+    cfg["train"]["segment_size"] = 2048
+    path = tmp_path / "tiny_train.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+# card_step_gaps's limits for a TF32 step on the card against the CPU, from
+# card readings on seeds 0-7 (H100 80GB HBM3, 700 W): the largest loss gap
+# 7.4e-5-2.3e-4 and worst gradient leaf 7.5e-3-3.7e-2 in float32 with cuDNN's
+# TF32 convs, 2.7e-2-6.6e-2 and 0.27-0.57 under bfloat16 autocast; each limit
+# two thirds of the way up, on a log scale, from the float32 to the bf16 readings
+LOSS_LIMIT = 5e-3
+GRAD_LIMIT = 0.14
+
+
+def card_step_gaps(path, seed: int = 0, bf16: bool = False) -> dict:
+    """One float32 ``train_step`` of the pitchless model on the CPU and on the
+    card (under bfloat16 autocast where ``bf16``), the same weights, batch and
+    draws. Returns ``loss``, the largest relative gap of the step's losses
+    (``each``: every loss's), and ``grad``, the largest gap of a leaf's
+    gradient norm over the larger of the CPU's norm of that leaf and the
+    median leaf's (the benchmark's measure, ``perfbench/checks.py``)."""
+    from vits_torch.training.step import train_step
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, hps, batch, noise = _tiny_train_parts(dev, path, seed)
+        ctx = torch.autocast("cuda", dtype=torch.bfloat16) if bf16 and dev == "cuda" \
+            else contextlib.nullcontext()
+        with ctx:
+            metrics = train_step(state, batch, hps, noise=noise)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {f"{side}.{n}": float(p.grad.norm())
+                     for side, m in (("g", state.model), ("d", state.disc))
+                     for n, p in m.named_parameters()})
+    (m_cpu, g_cpu), (m_card, g_card) = out["cpu"], out["cuda"]
+    assert set(m_cpu) == set(m_card) and "loss/g/subband" in m_card
+    each = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu if k.startswith("loss/")}
+    med = statistics.median(g_cpu.values())
+    return {"loss": max(each.values()), "each": each,
+            "grad": max(abs(g_card[k] - c) / max(c, med) for k, c in g_cpu.items())}
+
+
+@pytest.mark.cuda
+def test_pitchless_train_step_on_the_card_is_the_cpu_step(tmp_path):
+    """One float32 ``train_step`` of the pitchless model against the probe
+    MPD + MSD on the card and on the CPU (``card_step_gaps``): the losses and
+    each leaf's gradient within ``LOSS_LIMIT`` and ``GRAD_LIMIT``; the same
+    step under bfloat16 autocast on the card fails at least one of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    path = tiny_train_config(tmp_path)
+    got = card_step_gaps(path)
+    assert got["loss"] <= LOSS_LIMIT and got["grad"] <= GRAD_LIMIT, got
+    bf16 = card_step_gaps(path, bf16=True)
+    assert bf16["loss"] > LOSS_LIMIT or bf16["grad"] > GRAD_LIMIT, bf16

@@ -7,7 +7,8 @@ TextAudioSpeakerCollate.py, DistributedBucketSampler.py, utils.py:170-194.
 The same semantics as the JAX package, byte for byte:
   * features cached as .spec.npy / .ying.npy next to the wavs (float64 host
     spectrogram, the reference Yingram padding), so either package reads the
-    other's caches
+    other's caches; for a pitchless model (``DatasetConfig.pitch`` False) no
+    Yingram is computed or cached
   * batches are padded to STATIC bucket shapes: spec/ying/wav to the
     bucket's frame bound, text to a fixed bound
   * the sampler: per-bucket epoch-seeded shuffle, pad-to-multiple by
@@ -100,6 +101,9 @@ class DatasetConfig:
     octave_range: int = 24
     tau_max: int = 2048
     speakers: tuple = ()
+    # False for a pitchless model: no Yingram is computed or cached, and an
+    # item's ``ying`` is an empty [T', 0] array
+    pitch: bool = True
 
 
 class TextAudioSpeakerDataset(Dataset):
@@ -157,7 +161,9 @@ class TextAudioSpeakerDataset(Dataset):
             )
             _save_cache(spec_file, spec)
 
-        if os.path.exists(ying_file) and not pt_run:
+        if not cfg.pitch:
+            ying = np.zeros((spec.shape[0], 0), np.float32)
+        elif os.path.exists(ying_file) and not pt_run:
             ying = np.load(ying_file)
         else:
             # reference padding (TextAudioSpeakerLoader.py:140-148)

@@ -26,6 +26,10 @@ cast to bfloat16 at entry, every conv computed there (parameters stay f32);
 the head (exp, sin, the inverse STFT and the PQMF) runs in float32 from the
 last conv's output.
 
+``forward`` returns the waveform (serving); ``train_forward`` also returns
+the sub-band signals, which MB-iSTFT-VITS's sub-band STFT loss compares with
+the PQMF analysis of the real segment.
+
 Spans (``utils/profiling.py``): ``vits.decode.istft`` around the head.
 """
 
@@ -81,8 +85,9 @@ class MultiBandISTFTGenerator(nn.Module):
         self.istft = InverseSTFT(gen_istft_n_fft, gen_istft_hop_size)
         self.pqmf = PQMF(subbands, 62, PQMF_CUTOFF, 9.0)
 
-    def forward(self, x, g=None):
-        """x: [B, C, T] -> waveform [B, 1, T * prod(rates) * hop * subbands], f32."""
+    def _head_input(self, x, g):
+        """conv_pre -> [lrelu -> up -> MRF] x N -> lrelu -> pad -> sub-band conv:
+        [B, C, T] -> [B, subbands * (n_fft + 2), T']."""
         if self.bf16:
             x = x.to(torch.bfloat16)
             g = g.to(torch.bfloat16) if g is not None else None
@@ -96,9 +101,26 @@ class MultiBandISTFTGenerator(nn.Module):
                 r = self.resblocks[i * self.num_kernels + j](x)
                 z_sum = r if z_sum is None else z_sum + r
             x = z_sum / self.num_kernels
-        x = self.subband_conv_post(F.pad(F.leaky_relu(x), (1, 0), mode="reflect"))
+        return self.subband_conv_post(F.pad(F.leaky_relu(x), (1, 0), mode="reflect"))
+
+    def _bands(self, x):
+        """exp/sin, an inverse STFT a band, in float32: [B, subbands * (n_fft +
+        2), T'] -> the sub-band signals [B, subbands, hop * (T' - 1)]."""
+        x = x.float().unflatten(1, (self.subbands, self.n_fft + 2))
+        half = self.n_fft // 2 + 1
+        return self.istft(torch.exp(x[:, :, :half]), math.pi * torch.sin(x[:, :, half:]))
+
+    def forward(self, x, g=None):
+        """x: [B, C, T] -> waveform [B, 1, T * prod(rates) * hop * subbands], f32."""
+        x = self._head_input(x, g)
         with span("decode.istft"):
-            x = x.float().unflatten(1, (self.subbands, self.n_fft + 2))
-            half = self.n_fft // 2 + 1
-            bands = self.istft(torch.exp(x[:, :, :half]), math.pi * torch.sin(x[:, :, half:]))
-            return self.pqmf.synthesis(bands.transpose(1, 2)).transpose(1, 2)
+            return self.pqmf.synthesis(self._bands(x).transpose(1, 2)).transpose(1, 2)
+
+    def train_forward(self, x, g=None):
+        """The training call: x [B, C, T] -> (waveform [B, 1, 256 T], the
+        sub-band signals before the PQMF synthesis [B, subbands, 64 T] at the
+        published rates), f32; the same kernels as ``forward``."""
+        x = self._head_input(x, g)
+        with span("decode.istft"):
+            bands = self._bands(x)
+            return self.pqmf.synthesis(bands.transpose(1, 2)).transpose(1, 2), bands

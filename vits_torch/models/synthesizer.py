@@ -26,7 +26,9 @@ dict, JAX layout) or draws it from ``generator``, in the order listed:
   forward:          ``eps_spec`` [B, T_y, spec_ch], ``eps_yin`` [B, T_y,
                     yin_ch] (posterior samples), ``scope_shift`` [B] int (yin
                     decoder shift), ``e_q`` [B, T_x, 2] (SDP posterior
-                    noise), ``slice_u`` [B] (uniform slice offsets)
+                    noise), ``slice_u`` [B] (uniform slice offsets); without
+                    the pitch path ``eps_spec`` [B, T_y, inter], ``e_q``,
+                    ``slice_u`` (``PITCHLESS_NOISE``)
   infer:            ``sdp_noise`` [B, T_x, 2] (SDP reverse noise, before
                     ``noise_scale_w``), ``eps`` [B, max_frames, inter] (prior
                     sample)
@@ -52,10 +54,14 @@ generator, ``models/istft_generator.py``, with ``subbands``,
 ``gen_istft_n_fft`` and ``gen_istft_hop_size``), ``pitch="none"`` (no pitch
 posterior, yin decoder or Yingram: the decoder takes all of z and
 ``scope_shift`` is unread) and ``language_embedding=False`` (no ``emb_t``).
-A pitchless model serves (``infer``, the staged API, ``infer_decode_chunk``);
-``forward``, ``draw_noise``, ``yin_dec_infer`` and ``voice_conversion``
-need the pitch path, and training the HiFi-GAN decoder (``hier_forward``):
-elsewhere they raise.
+A pitchless model serves (``infer``, the staged API, ``infer_decode_chunk``)
+and, with the multi-band iSTFT decoder, trains: its ``forward`` is
+MB-iSTFT-VITS's ``SynthesizerTrn.forward`` (text encoder -> posterior encoder
+over all of z -> flow -> the same lattice and MAS -> SDP loss -> prior
+expansion -> one random slice a row, B rows -> the decoder's
+``train_forward``, which also returns the sub-band signals). A model with the
+pitch path trains the HiFi-GAN decoder (``hier_forward``); ``yin_dec_infer``
+and ``voice_conversion`` need the pitch path. Elsewhere they raise.
 
 Spans (``utils/profiling.py``): ``vits.decode`` around the decoder call of
 ``infer`` and ``infer_decode_chunk``.
@@ -82,6 +88,7 @@ from vits_torch.ops.commons import (
     crop_scope,
     dynamic_start,
     generate_path,
+    rand_slice_segments,
     rand_slice_segments_for_cat,
     sequence_mask,
 )
@@ -91,8 +98,10 @@ from vits_torch.text.symbols import symbols
 from vits_torch.utils.profiling import span
 
 
-# the draws of one ``forward`` (see the module docstring)
+# the draws of one ``forward`` (see the module docstring), with and without
+# the pitch path
 FORWARD_NOISE = ("eps_spec", "eps_yin", "scope_shift", "e_q", "slice_u")
+PITCHLESS_NOISE = ("eps_spec", "e_q", "slice_u")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -163,6 +172,7 @@ class SynthesizerTrn(nn.Module):
                              "'hifigan' or 'mb_istft', pitch 'yingram' or 'none'")
         self.decoder = decoder
         self.has_pitch = pitch != "none"
+        self.forward_noise = FORWARD_NOISE if self.has_pitch else PITCHLESS_NOISE
         if not self.has_pitch:
             yin_channels = yin_scope = 0
         self.segment_size = segment_size
@@ -234,13 +244,20 @@ class SynthesizerTrn(nn.Module):
             return self.emb_g(sid).unsqueeze(-1)  # [B, gin, 1]
         return None
 
-    def _needs_pitch(self, what: str, training: bool = False) -> None:
-        """Raises where ``what`` needs what this model lacks: the pitch path,
-        or (``training``) the HiFi-GAN decoder's ``hier_forward``."""
+    def _needs_pitch(self, what: str) -> None:
+        """Raises where ``what`` needs the pitch path and this model has none."""
         if not self.has_pitch:
             raise ValueError(f"{what} needs the pitch path; this model has none (pitch: none)")
-        if training and self.decoder != "hifigan":
-            raise ValueError(f"{what} trains the HiFi-GAN decoder; this model's decoder is "
+
+    def _trains(self, what: str) -> None:
+        """Raises where this model has no training forward: the pitch path
+        trains the HiFi-GAN decoder (``hier_forward``), a pitchless model the
+        multi-band iSTFT one (``train_forward``)."""
+        want = "hifigan" if self.has_pitch else "mb_istft"
+        if self.decoder != want:
+            kind = "HiFi-GAN" if self.has_pitch else "multi-band iSTFT"
+            raise ValueError(f"{what} of a model with pitch {'yingram' if self.has_pitch else 'none'}"
+                             f" trains the {kind} decoder; this model's decoder is "
                              f"{self.decoder!r}")
 
     def _crop0(self, x, scope_shift=0, dim=1):
@@ -279,7 +296,13 @@ class SynthesizerTrn(nn.Module):
         """Every draw of one ``forward`` at batch b, up front (JAX layout):
         what ``forward(noise=...)`` takes, so that a replay of the forward
         (``torch.utils.checkpoint``) sees the same numbers."""
-        self._needs_pitch("draw_noise", training=True)
+        self._trains("draw_noise")
+        if not self.has_pitch:
+            return {
+                "eps_spec": self._noise(None, "", (b, t_y, self.inter_channels), generator),
+                "e_q": self._noise(None, "", (b, t_x, 2), generator),
+                "slice_u": self._noise(None, "", (b,), generator, kind="uniform"),
+            }
         spec_ch = self.inter_channels - self.yin_channels
         return {
             "eps_spec": self._noise(None, "", (b, t_y, spec_ch), generator),
@@ -289,6 +312,32 @@ class SynthesizerTrn(nn.Module):
             "slice_u": self._noise(None, "", (b,), generator, kind="uniform"),
         }
 
+    def _align(self, z_p, m_p, logs_p, spec_mask, x_mask):
+        """The neg-cross-entropy lattice of z_p [B, C, T_y] under the prior
+        (m_p, logs_p [B, C, T_x]) and its monotonic path (MAS), no gradient:
+        attn [B, T_y, T_x]."""
+        with torch.no_grad():
+            s_p_sq_r = torch.exp(-2.0 * logs_p)  # [B, C, T_x]
+            neg_cent1 = torch.sum(
+                -0.5 * math.log(2 * math.pi) - logs_p, dim=1, keepdim=True
+            )  # [B, 1, T_x]
+            neg_cent2 = torch.matmul(-0.5 * (z_p**2).transpose(1, 2), s_p_sq_r)
+            neg_cent3 = torch.matmul(z_p.transpose(1, 2), m_p * s_p_sq_r)
+            neg_cent4 = torch.sum(-0.5 * m_p**2 * s_p_sq_r, dim=1, keepdim=True)
+            neg_cent = neg_cent1 + neg_cent2 + neg_cent3 + neg_cent4  # [B, T_y, T_x]
+            attn_mask = spec_mask.transpose(1, 2) * x_mask  # [B, T_y, T_x]
+            return maximum_path(neg_cent, attn_mask)
+
+    def _duration_and_prior(self, attn, x_h, m_p, logs_p, x_mask, g, e_q, x_mask_total):
+        """SDP loss over the path's durations and the prior expanded over the
+        frames (channels-last): (l_length [B], m_p_exp, logs_p_exp [B, T_y, C])."""
+        w = attn.sum(dim=1).unsqueeze(1)  # [B, 1, T_x]
+        l_length = self.duration_predictor(x_h, x_mask, w, g=g, e_q=e_q.transpose(1, 2))
+        l_length = l_length / (torch.sum(x_mask) if x_mask_total is None else x_mask_total)
+        m_p_exp = torch.matmul(attn, m_p.transpose(1, 2))
+        logs_p_exp = torch.matmul(attn, logs_p.transpose(1, 2))
+        return l_length, m_p_exp, logs_p_exp
+
     # -- training forward ------------------------------------------------
 
     def forward(
@@ -296,11 +345,15 @@ class SynthesizerTrn(nn.Module):
         generator=None, scope_shift: int = 0, x_mask_total=None,
     ) -> dict:
         """x, t: [B, T_x] symbol / language ids; x_lengths: [B]; y: [B, T_y,
-        spec] linear spectrogram; y_lengths: [B]; ying: [B, T_y, yin]; sid:
+        spec] linear spectrogram; y_lengths: [B]; ying: [B, T_y, yin] (unread,
+        and may be None, without the pitch path: ``_forward_pitchless``); sid:
         [B]. Returns the JAX ``__call__`` dict, every tensor channels-last.
         ``l_length`` is divided by ``x_mask_total`` where it is given (a
         data-parallel step's shared denominator), else by ``sum(x_mask)``."""
-        self._needs_pitch("forward", training=True)
+        self._trains("forward")
+        if not self.has_pitch:
+            return self._forward_pitchless(x, t, x_lengths, y, y_lengths, sid, noise, generator,
+                                           x_mask_total)
         b, t_x = x.shape
         t_y = y.shape[1]
         spec_ch = self.inter_channels - self.yin_channels
@@ -340,28 +393,10 @@ class SynthesizerTrn(nn.Module):
         z_dec_shifted = torch.cat([z_spec.detach(), z_yin_crop_shifted], dim=1)
         z_dec_ = torch.cat([z_dec, z_dec_shifted], dim=0)  # [2B, C, T_y]
 
-        # -- MAS, no gradient -------------------------------------------
-        with torch.no_grad():
-            s_p_sq_r = torch.exp(-2.0 * logs_p)  # [B, C, T_x]
-            neg_cent1 = torch.sum(
-                -0.5 * math.log(2 * math.pi) - logs_p, dim=1, keepdim=True
-            )  # [B, 1, T_x]
-            neg_cent2 = torch.matmul(-0.5 * (z_p**2).transpose(1, 2), s_p_sq_r)
-            neg_cent3 = torch.matmul(z_p.transpose(1, 2), m_p * s_p_sq_r)
-            neg_cent4 = torch.sum(-0.5 * m_p**2 * s_p_sq_r, dim=1, keepdim=True)
-            neg_cent = neg_cent1 + neg_cent2 + neg_cent3 + neg_cent4  # [B, T_y, T_x]
-            attn_mask = spec_mask.transpose(1, 2) * x_mask  # [B, T_y, T_x]
-            attn = maximum_path(neg_cent, attn_mask)
-
-        # -- duration loss -----------------------------------------------
-        w = attn.sum(dim=1).unsqueeze(1)  # [B, 1, T_x]
+        attn = self._align(z_p, m_p, logs_p, spec_mask, x_mask)
         e_q = self._noise(noise, "e_q", (b, t_x, 2), generator)
-        l_length = self.duration_predictor(x_h, x_mask, w, g=g, e_q=e_q.transpose(1, 2))
-        l_length = l_length / (torch.sum(x_mask) if x_mask_total is None else x_mask_total)
-
-        # -- expand prior (channels-last) ---------------------------------
-        m_p_exp = torch.matmul(attn, m_p.transpose(1, 2))
-        logs_p_exp = torch.matmul(attn, logs_p.transpose(1, 2))
+        l_length, m_p_exp, logs_p_exp = self._duration_and_prior(
+            attn, x_h, m_p, logs_p, x_mask, g, e_q, x_mask_total)
 
         # -- random segment + hierarchical decode --------------------------
         slice_u = self._noise(noise, "slice_u", (b,), generator, kind="uniform")
@@ -409,6 +444,51 @@ class SynthesizerTrn(nn.Module):
             "yin_hat_crop": yin_hat_crop,
             "scope_shift": shift,
             "yin_hat_shifted": yin_hat_shifted,
+        }
+
+    def _forward_pitchless(self, x, t, x_lengths, y, y_lengths, sid, noise, generator,
+                           x_mask_total) -> dict:
+        """``forward`` of a model without the pitch path (MB-iSTFT-VITS's
+        order, B rows): the posterior encoder over all ``inter_channels``,
+        the flow, the lattice and MAS, the SDP loss, the prior expansion, one
+        random slice a row of ``segment_size // hop`` frames of z, and the
+        decoder's ``train_forward``. Returns ``wav`` [B, segment, 1] and
+        ``wav_bands`` [B, segment / subbands, subbands] beside the keys the
+        KL, duration and mel losses read, channels-last."""
+        b, t_x = x.shape
+        t_y = y.shape[1]
+        x_h, m_p, logs_p, x_mask = self.text_encoder(x, t, x_lengths)
+        g = self._speaker_embedding(sid)
+        eps_spec = self._noise(noise, "eps_spec", (b, t_y, self.inter_channels), generator)
+        z, m_q, logs_q, spec_mask = self.posterior_encoder(
+            y.transpose(1, 2), y_lengths, g=g, eps=eps_spec.transpose(1, 2))
+        z_p = self.flow(z, spec_mask, g=g)
+        attn = self._align(z_p, m_p, logs_p, spec_mask, x_mask)
+        e_q = self._noise(noise, "e_q", (b, t_x, 2), generator)
+        l_length, m_p_exp, logs_p_exp = self._duration_and_prior(
+            attn, x_h, m_p, logs_p, x_mask, g, e_q, x_mask_total)
+        slice_u = self._noise(noise, "slice_u", (b,), generator, kind="uniform")
+        z_slice, ids_slice = rand_slice_segments(
+            z.transpose(1, 2), y_lengths, self.segment_size // self.hop_length, slice_u)
+        wav, bands = self.waveform_decoder.train_forward(z_slice.transpose(1, 2), g=g)
+
+        def cl(v):
+            return v.transpose(1, 2)
+
+        return {
+            "wav": cl(wav),
+            "wav_bands": cl(bands),
+            "l_length": l_length,
+            "attn": attn,
+            "ids_slice": ids_slice,
+            "x_mask": cl(x_mask),
+            "z_mask": cl(spec_mask),
+            "z": cl(z),
+            "z_p": cl(z_p),
+            "m_p": m_p_exp,
+            "logs_p": logs_p_exp,
+            "m_q": cl(m_q),
+            "logs_q": cl(logs_q),
         }
 
     # -- inference -------------------------------------------------------

@@ -61,6 +61,22 @@ def slice_segments(
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
 
 
+def rand_slice_segments(
+    x: torch.Tensor,
+    x_lengths: torch.Tensor,
+    segment_size: int,
+    u: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Random slices, one offset a row at ``u * (length - segment_size + 1)``
+    (VITS's ``commons.rand_slice_segments``). x: [B, T, C]; x_lengths: [B];
+    u: [B] uniform draws in [0, 1). Returns (slices [B, seg, C], ids [B]
+    int32)."""
+    ids_str_max = (x_lengths - segment_size + 1).to(torch.float32)
+    ids_str = (u.to(torch.float32) * ids_str_max).to(torch.int32)
+    ids_str = torch.clamp(ids_str, min=0)
+    return slice_segments(x, ids_str, segment_size), ids_str
+
+
 def rand_slice_segments_for_cat(
     x: torch.Tensor,
     x_lengths: torch.Tensor,
@@ -73,11 +89,7 @@ def rand_slice_segments_for_cat(
     JAX version draws them from its key; here they are passed in). Returns
     (slices [2B, seg, C], ids [2B] int32).
     """
-    u = torch.cat([u, u], dim=0).to(torch.float32)
-    ids_str_max = (x_lengths - segment_size + 1).to(torch.float32)
-    ids_str = (u * ids_str_max).to(torch.int32)
-    ids_str = torch.clamp(ids_str, min=0)
-    return slice_segments(x, ids_str, segment_size), ids_str
+    return rand_slice_segments(x, x_lengths, segment_size, torch.cat([u, u], dim=0))
 
 
 def intersperse_with_language_id(text, lang, item):

@@ -362,7 +362,10 @@ def tp_shard_generator(model: torch.nn.Module, mesh: Mesh2D | None = None) -> to
     with one output channel, and every module outside the decoder) stays
     replicated. Call it in every rank of the mesh (default: the one
     ``make_mesh_2d`` made) before the optimizer is built and before
-    ``wrap``."""
+    ``wrap``. A pitchless model has no tensor-parallel step and raises."""
+    if not getattr(model, "has_pitch", True):
+        raise ValueError("tp_shard_generator: a pitchless model (pitch: none) trains in one "
+                         "process; its step has no tensor-parallel form")
     mesh = mesh or _MESH
     decoder = model.waveform_decoder
     for name, module in list(decoder.named_modules()):

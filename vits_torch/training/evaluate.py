@@ -19,7 +19,9 @@ given in ``noise`` (``{"val": forward noise, "samples": {"sdp_noise", "eps"},
 "yin_dec": {"scope_shift"}}``, any subset). The JAX module's ``_JIT_CACHE``
 of compiled programs has no counterpart: eager PyTorch compiles nothing.
 Without matplotlib the images are left out (the train loop names that once
-in its log); the audio and scalars are still summarized.
+in its log); the audio and scalars are still summarized. A pitchless model
+(MB-iSTFT-VITS) has the mel terms alone: ``val/yin_dec`` is NaN and the
+samples have no scope shift, yin decoder or Yingram images.
 """
 
 from __future__ import annotations
@@ -57,15 +59,18 @@ def _val_losses(model: SynthesizerTrn, batch: dict, hps, noise: dict | None = No
     b = x.shape[0]
     out = model(x, t, xl, spec, sl, ying, sid, noise=noise,
                 generator=None if noise else _generator(model, 0))
+    wav = out["wav_hier"][-1][:b] if model.has_pitch else out["wav"]
     mel = spec_to_mel(spec, d.filter_length, d.n_mel_channels, d.sampling_rate, d.mel_fmin,
                       d.mel_fmax)
     ids = out["ids_slice"].long()
     y_mel = slice_segments(mel, ids[:b], seg_frames)
     y_hat_mel = mel_spectrogram(
-        out["wav_hier"][-1][:b, :, 0], d.filter_length, d.n_mel_channels, d.sampling_rate, hop,
+        wav[:, :, 0], d.filter_length, d.n_mel_channels, d.sampling_rate, hop,
         d.win_length, d.mel_fmin, d.mel_fmax,
     )
     loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel))
+    if not model.has_pitch:
+        return loss_mel, None
     loss_yin = torch.mean(torch.abs(out["yin_gt_shifted_crop"] - out["yin_dec_crop"]))
     return loss_mel, loss_yin
 
@@ -94,7 +99,27 @@ def _sample_outputs(model: SynthesizerTrn, batch: dict, n_sample: int, hps,
     )
     _, z, *_ = aux
     y_hat = model.infer_decode_chunk(dec_inputs, sid)  # [B, T*hop, 1]
+    mel_kw = (d.filter_length, d.n_mel_channels, d.sampling_rate, hop, d.win_length,
+              d.mel_fmin, d.mel_fmax)
+    out = dict(
+        y_lengths=y_lengths,
+        y_hat=y_hat,
+        mel_gt=spec_to_mel(spec, d.filter_length, d.n_mel_channels, d.sampling_rate,
+                           d.mel_fmin, d.mel_fmax),
+        mel_gen=mel_spectrogram(y_hat[..., 0], *mel_kw),
+    )
+    if model.has_pitch:
+        out.update(_pitch_outputs(model, z, y_mask, y_hat, sid, noise, hps))
+        out["mel_gen_shift"] = mel_spectrogram(out["y_hat_shift"][..., 0], *mel_kw)
+    return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+            for k, v in out.items()}
 
+
+def _pitch_outputs(model: SynthesizerTrn, z, y_mask, y_hat, sid, noise: dict, hps) -> dict:
+    """The samples' pitch payload: the scope-shifted audio, the yin decoder's
+    reconstruction and the Yingrams."""
+    d = hps.data
+    hop = d.hop_length
     # scope-shift(+6): re-crop the SAME latent z (reference :104-115)
     spec_ch = model.inter_channels - model.yin_channels
     z_spec, z_yin = z[..., :spec_ch], z[..., spec_ch:]
@@ -119,23 +144,13 @@ def _sample_outputs(model: SynthesizerTrn, batch: dict, n_sample: int, hps,
         right = left + (-o.shape[-1]) % hop + hop * (o.shape[-1] % hop == 0)
         return ying_op(F.pad(o, (left, right)))
 
-    mel_kw = (d.filter_length, d.n_mel_channels, d.sampling_rate, hop, d.win_length,
-              d.mel_fmin, d.mel_fmax)
-    out = dict(
-        y_lengths=y_lengths,
-        y_hat=y_hat,
+    return dict(
         y_hat_shift=y_hat_shift,
         yin_hat=yin_hat,
         z_yin_masked=z_yin * y_mask,
         ying_hat=_ying_of(y_hat),
         ying_hat_shift=_ying_of(y_hat_shift),
-        mel_gt=spec_to_mel(spec, d.filter_length, d.n_mel_channels, d.sampling_rate,
-                           d.mel_fmin, d.mel_fmax),
-        mel_gen=mel_spectrogram(y_hat[..., 0], *mel_kw),
-        mel_gen_shift=mel_spectrogram(y_hat_shift[..., 0], *mel_kw),
     )
-    return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
-            for k, v in out.items()}
 
 
 def _log_samples(model, batch, writer, global_step, hps, noise=None) -> dict:
@@ -157,13 +172,16 @@ def _log_samples(model, batch, writer, global_step, hps, noise=None) -> dict:
                                     ("mel_shift", "mel_gen_shift", _LOG_FLOOR),
                                     ("z_yin", "z_yin_masked", 0.0), ("yin_dec", "yin_hat", 0.0),
                                     ("ying", "ying_hat", 0.0), ("ying_shift", "ying_hat_shift", 0.0)):
-                images[f"gen/{i}_{name}"] = plot(_pad_to(out[key][i, :n_frames], grid, fill))
+                if key in out:
+                    images[f"gen/{i}_{name}"] = plot(_pad_to(out[key][i, :n_frames], grid, fill))
         audios[f"gen/{i}_audio"] = out["y_hat"][i, : n_frames * hop, 0]
-        audios[f"gen/{i}_audio_shift"] = out["y_hat_shift"][i, : n_frames * hop, 0]
+        if "y_hat_shift" in out:
+            audios[f"gen/{i}_audio_shift"] = out["y_hat_shift"][i, : n_frames * hop, 0]
         if global_step == 0:  # ground truth once (reference :269-287)
             if plot is not None:
                 images[f"gt/{i}_mel"] = plot(out["mel_gt"][i, :gt_frames])
-                images[f"gt/{i}_ying"] = plot(np.asarray(batch["ying"][i, :gt_frames]))
+                if model.has_pitch:
+                    images[f"gt/{i}_ying"] = plot(np.asarray(batch["ying"][i, :gt_frames]))
             audios[f"gt/{i}_audio"] = np.asarray(batch["wav"][i, : gt_frames * hop, 0])
     summarize(
         writer, global_step, images=images, audios=audios,
@@ -193,7 +211,8 @@ def evaluate(
                     break
                 loss_mel, loss_yin = _val_losses(model, batch, hps, (noise or {}).get("val"))
                 mel_losses.append(float(loss_mel))
-                yin_losses.append(float(loss_yin))
+                if loss_yin is not None:
+                    yin_losses.append(float(loss_yin))
                 if first_batch is None:
                     first_batch = batch
 

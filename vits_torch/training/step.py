@@ -2,7 +2,10 @@
 update against the updated discriminator (port of
 ``vits_tpu/training/step.py``).
 
-In the JAX package's order:
+One skeleton for two models, chosen by ``model.has_pitch``; what differs is
+the real side, the discriminator's inputs and the G loss's last terms. A
+model with the pitch path (PITS, against the Avocodo discriminator) steps in
+the JAX package's order:
   1. one generator forward in train mode; its autograd graph is kept for the
      generator's backward (where JAX linearises once with ``jax.vjp``);
   2. the real mel, sliced at the generator's offsets, and the real waveform
@@ -15,6 +18,19 @@ In the JAX package's order:
      through the kept generator graph with D's parameters frozen, so no D
      gradient is computed in this pass; ``optim_g.step()``.
 
+A pitchless model (MB-iSTFT-VITS, against VITS's MPD + MSD, ``models/mpd.py``)
+takes the same steps in MB-iSTFT-VITS's order (``train_latest.py``), on B
+rows and without PhaseAug: the generator forward also returns the sub-bands
+``wav_bands``; the real waveform is sliced undoubled; D takes (real,
+generated) as [B, 1, segment]; the yin losses give way to the sub-band STFT
+loss (``losses.py::subband_stft_loss`` between the PQMF analysis of the real
+segment and ``wav_bands``, at the configuration's ``fft_sizes``,
+``hop_sizes``, ``win_lengths``). Its metrics are
+``loss/g/{score,fm,mel,dur,kl,subband,total}`` beside the ``loss/d/*`` and
+``grad_norm/*`` keys. It runs in one process (no data- or tensor-parallel
+step: the spectral convergence is a ratio over the whole batch, not a mean
+over equal shapes).
+
 Both optimizers are ``torch.optim.AdamW`` (betas and eps from the config,
 weight decay 1e-2) with the staircase per-epoch exponential decay applied to
 the learning rate before each update, from the optimizer's own update count.
@@ -26,7 +42,9 @@ Each phase is a span of ``utils/profiling.py`` (live while tracing is on):
 ``train.d_forward`` (the real side, PhaseAug, D, its loss),
 ``train.d_backward``, ``train.d_update`` (the metrics' stack, the gradient
 norm, the lr, ``AdamW.step``), ``train.g_loss``, ``train.g_backward``,
-``train.g_update``.
+``train.g_update``; for a pitchless model also ``train.subband_loss``
+(the real segment's PQMF analysis and the sub-band loss, inside
+``train.g_loss``).
 
 ``hps.train.remat_run`` wraps the generator forward and each discriminator
 application in ``torch.utils.checkpoint``. ``hps.train.nan_guard`` reverts a
@@ -81,8 +99,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from vits_torch.models.avocodo import AvocodoDiscriminator
-from vits_torch.models.synthesizer import FORWARD_NOISE, SynthesizerTrn
+from vits_torch.models.synthesizer import SynthesizerTrn
 from vits_torch.ops.commons import sequence_mask, slice_segments
 from vits_torch.ops.phaseaug import phaseaug_sync, sample_phi
 from vits_torch.ops.stft import mel_spectrogram, spec_to_mel
@@ -91,6 +108,9 @@ from vits_torch.training import losses as L
 from vits_torch.utils.profiling import span
 
 BATCH_KEYS = ("x", "t", "x_lengths", "spec", "spec_lengths", "ying", "wav", "sid")
+# what the pitchless branch reads: no Yingram; language and speaker ids where
+# the batch has them
+PITCHLESS_KEYS = ("x", "x_lengths", "spec", "spec_lengths", "wav")
 
 
 def lr_schedule(hps, steps_per_epoch: int) -> Callable[[int], float]:
@@ -120,7 +140,7 @@ class TrainState:
 
     step: int
     model: SynthesizerTrn
-    disc: AvocodoDiscriminator
+    disc: torch.nn.Module  # AvocodoDiscriminator or MultiPeriodDiscriminator
     optim_g: torch.optim.AdamW
     optim_d: torch.optim.AdamW
     schedule: Callable[[int], float]
@@ -142,7 +162,7 @@ class Remat(torch.nn.Module):
 
 
 def create_train_state(
-    model: SynthesizerTrn, disc: AvocodoDiscriminator, hps, steps_per_epoch: int
+    model: SynthesizerTrn, disc: torch.nn.Module, hps, steps_per_epoch: int
 ) -> TrainState:
     return TrainState(
         step=0,
@@ -157,7 +177,12 @@ def create_train_state(
 def replicate_state(state: TrainState, hps) -> TrainState:
     """Wrap the generator and the discriminator in DDP (each inside ``Remat``
     under ``remat_run``): rank 0's parameters are broadcast to every rank
-    now. Call it in every process of the group, after a resume's load."""
+    now. Call it in every process of the group, after a resume's load.
+    Only a model with the pitch path has a data-parallel step."""
+    if not state.model.has_pitch:
+        raise ValueError("replicate_state: a pitchless model (pitch: none) trains in one "
+                         "process; its sub-band loss's spectral convergence is a ratio over the "
+                         "whole batch, which the data-parallel step does not split")
     remat = bool(hps.train.get("remat_run", False))
     state.ddp = tuple(mesh.wrap(Remat(m) if remat else m) for m in (state.model, state.disc))
     return state
@@ -220,8 +245,9 @@ def apply_update(optim, schedule, loss, nan_guard: bool):
 
 def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None,
                generator: torch.Generator | None = None) -> dict:
-    """One D+G update on ``batch`` (keys ``BATCH_KEYS``; JAX layout: spec
-    [B, T_y, F], ying [B, T_y, M], wav [B, T_y * hop, 1]). Updates ``state``
+    """One D+G update on ``batch`` (keys ``BATCH_KEYS``, or ``PITCHLESS_KEYS``
+    and any of ``t``, ``sid`` for a pitchless model; JAX layout: spec [B,
+    T_y, F], ying [B, T_y, M], wav [B, T_y * hop, 1]). Updates ``state``
     in place and returns the metrics as 0-d tensors on the model's device.
     Afterwards every parameter's ``.grad`` holds the gradient its update
     used. Under DDP (``state.ddp``) ``batch`` is this rank's rows, ``noise``
@@ -235,21 +261,25 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
     nan_guard = bool(hps.train.get("nan_guard", False))
     ddp = state.ddp is not None
     world = mesh.data_count() if ddp else 1
+    pitch = model.has_pitch
 
     with span("train.inputs"):
-        b = {k: torch.as_tensor(batch[k], device=dev) for k in BATCH_KEYS}
+        keys = BATCH_KEYS if pitch else PITCHLESS_KEYS
+        b = {k: torch.as_tensor(batch[k], device=dev) if k in keys or k in batch else None
+             for k in BATCH_KEYS}
         bsz, t_x = b["x"].shape
         batch_global = bsz * world
         noise = dict(noise or {})
-        if any(k not in noise for k in FORWARD_NOISE):
+        if any(k not in noise for k in model.forward_noise):
             noise = {**model.draw_noise(batch_global, t_x, b["spec"].shape[1], generator),
                      **noise}
-        for k in ("phi_d", "phi_g"):  # PhaseAug rotates the 2B rows of (real, generated)
+        for k in ("phi_d", "phi_g") if pitch else ():  # PhaseAug rotates the 2B rows
             if k not in noise:
                 noise[k] = sample_phi(2 * batch_global, generator, dev)
         if ddp:
             noise = mesh.rank_rows(noise, mesh.data_index(), world, batch_global)
-        phi_d, phi_g = (torch.as_tensor(noise[k], device=dev) for k in ("phi_d", "phi_g"))
+        phi_d, phi_g = (torch.as_tensor(noise[k], device=dev) if pitch else None
+                        for k in ("phi_d", "phi_g"))
 
     if ddp:
         gen_apply, disc_apply = state.ddp
@@ -266,20 +296,18 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
                 b["sid"])
     with span("train.g_forward"):
         out = gen_apply(*gen_args, noise=noise, x_mask_total=x_total)
-    ids = out["ids_slice"].long()  # [2B], halves identical
+    ids = out["ids_slice"].long()  # PITS: [2B], halves identical
 
     with span("train.d_forward"):
         # -- 2. the real side --------------------------------------------------
         mel = spec_to_mel(b["spec"], d.filter_length, d.n_mel_channels, d.sampling_rate,
                           d.mel_fmin, d.mel_fmax)
         y_mel = slice_segments(mel, ids[:bsz], seg_frames)
-        wav2 = torch.cat([b["wav"], b["wav"]], dim=0)
-        y_sliced = slice_segments(wav2, ids * hop, seg)  # [2B, seg, 1]
+        wav_real = torch.cat([b["wav"], b["wav"]], dim=0) if pitch else b["wav"]
+        y_sliced = slice_segments(wav_real, ids * hop, seg)  # [2B or B, seg, 1]
 
         # -- 3. discriminator step ---------------------------------------------
-        fake = [w.detach() for w in out["wav_hier"]]
-        aug_y, aug_fake = phaseaug_sync(y_sliced, fake[-1], phi=phi_d)
-        y_d_r, y_d_g, _, _ = disc_apply(aug_y, [fake[0], fake[1], aug_fake])
+        y_d_r, y_d_g, _, _ = disc_apply(*_disc_inputs(pitch, y_sliced, out, phi_d, detach=True))
         loss_disc, r_losses, g_losses = L.discriminator_loss(y_d_r, y_d_g)
     with span("train.d_backward"):
         state.optim_d.zero_grad(set_to_none=True)
@@ -293,51 +321,88 @@ def train_step(state: TrainState, batch: dict, hps, *, noise: dict | None = None
 
     # -- 4. generator step against the updated D -------------------------------
     # D stays frozen through the backward: a checkpointed D replays there
-    wav_hier = out["wav_hier"]
+    wav_hat = out["wav_hier"][-1] if pitch else out["wav"]
     c = hps.train
     with frozen(disc):
         with span("train.g_loss"):
-            aug_y, aug_hat = phaseaug_sync(y_sliced, wav_hier[-1], phi=phi_g)
             y_d_r, y_d_g, fmap_r, fmap_g = frozen_disc_apply(
-                aug_y, [wav_hier[0], wav_hier[1], aug_hat])
-            y_hat_mel = mel_spectrogram(wav_hier[-1][:bsz, :, 0], d.filter_length,
+                *_disc_inputs(pitch, y_sliced, out, phi_g, detach=False))
+            y_hat_mel = mel_spectrogram(wav_hat[:bsz, :, 0], d.filter_length,
                                         d.n_mel_channels, d.sampling_rate, hop, d.win_length,
                                         d.mel_fmin, d.mel_fmax)
-            yin_gt_crop_sliced = slice_segments(
-                torch.cat([out["yin_gt_crop"], out["yin_gt_shifted_crop"]], dim=0), ids,
-                seg_frames)
             loss_dur = torch.sum(out["l_length"].float())
             loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * c.c_mel
             z_total = ratio_denominator(out["z_mask"].sum()) if ddp else None
             loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
                                 out["z_mask"], z_total) * c.c_kl
-            loss_yin_dec = (
-                torch.mean(torch.abs(out["yin_gt_shifted_crop"] - out["yin_dec_crop"])) * c.c_yin
-            )
-            loss_yin_shift = (
-                torch.mean(torch.abs(torch.exp(-yin_gt_crop_sliced)
-                                     - torch.exp(-out["yin_hat_crop"]))) * c.c_yin
-                + torch.mean(torch.abs(torch.exp(-out["yin_hat_shifted"])
-                                       - torch.exp(-out["yin_hat_crop"][bsz:]))) * c.c_yin
-            )
+            if pitch:
+                extra = _yin_losses(out, ids, bsz, seg_frames, c)
+            else:
+                with span("train.subband_loss"):
+                    extra = {"subband": _subband_loss(model, y_sliced, out, c)}
             loss_fm = L.feature_loss(fmap_r, fmap_g)
             loss_gen, _ = L.generator_loss(y_d_g)
-            loss_total = (loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_yin_shift
-                          + loss_yin_dec)
+            loss_total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
+            for v in reversed(extra.values()):  # the JAX package adds yinshift, then yindec
+                loss_total = loss_total + v
         with span("train.g_backward"):
             state.optim_g.zero_grad(set_to_none=True)
             loss_total.backward()
     with span("train.g_update"):
-        g_metrics = torch.stack([loss_gen, loss_fm, loss_mel, loss_dur, loss_kl, loss_yin_dec,
-                                 loss_yin_shift, loss_total]).detach()
+        g_metrics = torch.stack([loss_gen, loss_fm, loss_mel, loss_dur, loss_kl,
+                                 *extra.values(), loss_total]).detach()
         if ddp:
             g_metrics = mesh.all_mean(g_metrics)
         grad_norm_g, skipped_g = apply_update(state.optim_g, state.schedule, g_metrics[-1],
                                               nan_guard)
     state.step += 1
 
-    names = ("score", "fm", "mel", "dur", "kl", "yindec", "yinshift", "total")
-    metrics = {f"loss/g/{k}": v for k, v in zip(names, g_metrics)}
+    return _metrics(("score", "fm", "mel", "dur", "kl", *extra, "total"), g_metrics,
+                    d_metrics, grad_norm_g, grad_norm_d, skipped_g, skipped_d, nan_guard)
+
+
+def _disc_inputs(pitch: bool, y_sliced, out: dict, phi, detach: bool) -> tuple:
+    """(real, generated) as the model's discriminator takes them: for PITS
+    PhaseAug's rotation ``phi`` of the real and the full-rate generated 2B
+    rows, beside the generator's two lower scales; for a pitchless model the
+    real and generated waveforms as [B, 1, segment]."""
+    if pitch:
+        fake = [w.detach() if detach else w for w in out["wav_hier"]]
+        aug_y, aug_fake = phaseaug_sync(y_sliced, fake[-1], phi=phi)
+        return aug_y, [fake[0], fake[1], aug_fake]
+    fake = out["wav"].detach() if detach else out["wav"]
+    return y_sliced.transpose(1, 2), fake.transpose(1, 2)
+
+
+def _yin_losses(out: dict, ids, bsz: int, seg_frames: int, c) -> dict:
+    """PITS's yin terms, in the metrics' order."""
+    yin_gt_crop_sliced = slice_segments(
+        torch.cat([out["yin_gt_crop"], out["yin_gt_shifted_crop"]], dim=0), ids, seg_frames)
+    loss_yin_dec = (
+        torch.mean(torch.abs(out["yin_gt_shifted_crop"] - out["yin_dec_crop"])) * c.c_yin
+    )
+    loss_yin_shift = (
+        torch.mean(torch.abs(torch.exp(-yin_gt_crop_sliced)
+                             - torch.exp(-out["yin_hat_crop"]))) * c.c_yin
+        + torch.mean(torch.abs(torch.exp(-out["yin_hat_shifted"])
+                               - torch.exp(-out["yin_hat_crop"][bsz:]))) * c.c_yin
+    )
+    return {"yindec": loss_yin_dec, "yinshift": loss_yin_shift}
+
+
+def _subband_loss(model, y_sliced, out: dict, c):
+    """The sub-band STFT loss between the PQMF analysis of the real segment
+    and the generator's sub-bands, at the configuration's resolutions."""
+    y_mb = model.waveform_decoder.pqmf.analysis(y_sliced)  # [B, seg / N, N]
+    return L.subband_stft_loss(y_mb.transpose(1, 2), out["wav_bands"].transpose(1, 2),
+                               c.fft_sizes, c.hop_sizes, c.win_lengths)
+
+
+def _metrics(g_names, g_metrics, d_metrics, grad_norm_g, grad_norm_d, skipped_g, skipped_d,
+             nan_guard: bool) -> dict:
+    """A step's metrics, detached: ``loss/g/<name>``, ``loss/d/{total,real,
+    gen}``, the gradient norms and, under nan_guard, the reverted updates."""
+    metrics = {f"loss/g/{k}": v for k, v in zip(g_names, g_metrics)}
     metrics.update({
         "loss/d/total": d_metrics[0],
         "loss/d/real": d_metrics[1],

@@ -60,6 +60,7 @@ from vits_torch.data.dataset import (
     make_loader,
 )
 from vits_torch.models.avocodo import AvocodoDiscriminator, probe_discriminator
+from vits_torch.models.mpd import MultiPeriodDiscriminator
 from vits_torch.models.synthesizer import build_synthesizer, resolve_device
 from vits_torch.ops import mas_cuda
 from vits_torch.parallel import mesh
@@ -88,7 +89,18 @@ from vits_torch.utils.profiling import StepTimer, trace
 DEFAULT_BOUNDARIES = [32, 300, 400, 500, 600, 700, 800, 900, 1000, 1100, 1200, 1300, 1400, 1500]
 
 
+def _has_pitch(hps) -> bool:
+    """Whether the configured model has the pitch path (``model.pitch`` is
+    not ``none``), as ``SynthesizerTrn.has_pitch`` reads it."""
+    return str((hps.get("model") or {}).get("pitch", "yingram")) != "none"
+
+
 def build_dataset(hps, split: str, pt_run: bool = False):
+    """The split's dataset; a pitchless model (``model.pitch: none``) reads no
+    Yingram, so its data section needs no Yingram keys."""
+    pitch = _has_pitch(hps)
+    yin = dict(midi_start=hps.data.midi_start, midi_end=hps.data.midi_end,
+               octave_range=hps.data.octave_range, tau_max=hps.data.tau_max) if pitch else {}
     cfg = DatasetConfig(
         data_path=hps.data.data_path,
         sampling_rate=hps.data.sampling_rate,
@@ -98,11 +110,9 @@ def build_dataset(hps, split: str, pt_run: bool = False):
         add_blank=hps.data.add_blank,
         min_text_len=hps.data.get("min_text_len", 1),
         max_text_len=hps.data.get("max_text_len", 190),
-        midi_start=hps.data.midi_start,
-        midi_end=hps.data.midi_end,
-        octave_range=hps.data.octave_range,
-        tau_max=hps.data.tau_max,
         speakers=tuple(hps.data.speakers),
+        pitch=pitch,
+        **yin,
     )
     filelist = (
         hps.data.training_files if split == "train" else hps.data.validation_files
@@ -110,7 +120,13 @@ def build_dataset(hps, split: str, pt_run: bool = False):
     return TextAudioSpeakerDataset(filelist, cfg, pt_run=pt_run)
 
 
-def build_discriminator(hps, bf16: bool, device) -> AvocodoDiscriminator:
+def build_discriminator(hps, bf16: bool, device) -> torch.nn.Module:
+    """The model's discriminator, chosen as ``train_step`` chooses its branch:
+    the Avocodo CoMBD + SBD for a model with the pitch path (PITS's), VITS's
+    MPD + MSD (``models/mpd.py``, MB-iSTFT-VITS's) for a pitchless one.
+    ``model.discriminator_size`` (``flagship`` | ``probe``) picks the
+    published widths or the test widths of either. MPD + MSD computes in
+    float32, as MB-iSTFT-VITS trains, so ``bf16`` is for Avocodo alone."""
     disc_size = str(hps.model.get("discriminator_size", "flagship"))
     if disc_size not in ("flagship", "probe"):
         # a typo ('Probe', 'small') would otherwise silently train the
@@ -119,6 +135,11 @@ def build_discriminator(hps, bf16: bool, device) -> AvocodoDiscriminator:
             f"model.discriminator_size must be 'flagship' or 'probe', "
             f"got {disc_size!r}"
         )
+    if not _has_pitch(hps):
+        if bf16:
+            raise ValueError("build_discriminator: VITS's MPD + MSD of a pitchless model "
+                             "computes in float32; bf16 is for the Avocodo discriminator")
+        return MultiPeriodDiscriminator(probe=disc_size == "probe", device=device)
     make = probe_discriminator if disc_size == "probe" else AvocodoDiscriminator
     return make(bf16=bf16, segment_size=hps.train.segment_size, device=device)
 
