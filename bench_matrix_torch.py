@@ -37,7 +37,7 @@ EN_TEXT = "[EN]the quick brown fox jumps over the lazy dog[EN]"
 
 def scenario_lines(config, dev, n=15, train_batch_size=16):
     """Yields the six scenarios' lines (bench_matrix.py's sizes and ``n``
-    timed calls each unless given), then reports the MAS launches."""
+    timed calls each unless given), then reports the kernel launches."""
     from vits_torch.config import load_hparams
     from vits_torch.models.synthesizer import build_synthesizer
     from vits_torch.ops.commons import intersperse_with_language_id

@@ -102,11 +102,12 @@ def sync(dev: torch.device) -> None:
 
 
 def report_launches(script: str, train_steps: int) -> None:
-    """The last stderr line: train steps run and the MAS kernels' launches."""
-    from vits_torch.ops import mas_cuda
+    """The last stderr line: train steps run and the hand-written kernels'
+    launches."""
+    from vits_torch.ops import kernel_launches
 
     print(json.dumps({"script": script, "train_steps": train_steps,
-                      "mas_launches": dict(mas_cuda.launches)}), file=sys.stderr)
+                      "launches": kernel_launches()}), file=sys.stderr)
 
 
 def frontend_note(script: str) -> None:

@@ -73,7 +73,7 @@ to the CPU):
                bf16): exit 0, no process of the run left, its logged losses
                at steps 2 and 4 those of phase 8's first run (rtol 1e-3), its
                eval_4 served by TTSEngine (strict load), wall time, peak
-               memory and MAS launches from its train.log; (b) two ranks on
+               memory and kernel launches from its train.log; (b) two ranks on
                the one card over gloo (spawned, joined), phase 6's tiny
                configuration with rank 0's rows long and rank 1's short:
                one DDP train_step a rank against one process's train_step on
@@ -141,9 +141,25 @@ to the CPU):
                bench.py's, bench_train.py's and bench_matrix.py's source),
                every number finite and > 0, train_mfu in (0, 1], device
                naming this card; the trace holds CUDA kernel events (their
-               busy time and idle share printed); each script's MAS launches
+               busy time and idle share printed); each script's kernel launches
                (its last stderr line) are one mas_fused a train step and no
                other
+ 16. grouped   the scale discriminator's grouped input gradient
+               (ops/grouped_conv.py) at the ljs_mbistft.train cell's four
+               shapes, 128 rows: 16 -> 64 / 4 groups at T_in 8192, 64 -> 256
+               / 16 at 2048, 256 -> 1024 / 64 at 512, 1024 -> 1024 / 256 at
+               128 (kernel 41, stride 4, padding 20): the kernel against
+               cuDNN's conv1d_input with TF32 off, within twice the float32
+               summation bound; its time beside its bound (f32 FMA at 67
+               TFLOP/s, or bytes), the plain version's (conv1d_input under
+               PyTorch's defaults) and the library's (conv1d_input, TF32 off);
+               cuDNN's forward and weight gradient of the same layers, for
+               the record; then one pitchless train_step at the cell's widths
+               (B=64, segment 8192, the published MPD + MSD) after a warm-up,
+               every kernel count at 0, traced: 8 grouped_dgrad launches and
+               kernel events, the kernel's device time in the step. Every
+               phase counts grouped_dgrad's launches with the MAS kernels':
+               the cje paths (phases 3-15) must show 0
 Then no process the phases started (loader workers, nvcc, torchrun, ranks)
 may be left running: any still alive after 10 s is killed and the script
 fails.
@@ -276,12 +292,26 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def mas_only(**counts) -> dict:
-    """The MAS launch counts a run must show: those named, every other
-    kernel's 0."""
-    from vits_torch.ops import mas_cuda
+def kernel_launches() -> dict:
+    """Every hand-written kernel's launches in this process."""
+    from vits_torch.ops import kernel_launches as launches
 
-    return {**dict.fromkeys(mas_cuda.launches, 0), **counts}
+    return launches()
+
+
+def reset_launches() -> None:
+    """Sets every hand-written kernel's launch count to 0."""
+    from vits_torch.ops import grouped_conv, mas_cuda
+
+    for counts in (mas_cuda.launches, grouped_conv.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def only_launched(**counts) -> dict:
+    """The kernel launch counts a run must show: those named, every other
+    kernel's 0."""
+    return {**dict.fromkeys(kernel_launches(), 0), **counts}
 
 
 def mas_case(b, t_y, t_x, seed, t_ys=None, t_xs=None, full_first=False):
@@ -378,15 +408,15 @@ def check_mas(card: str, main_lengths) -> dict:
         if clusters < 1:
             raise AssertionError(f"mas wide: the card holds no cluster of the plan {plan}")
         neg, mask, _, _ = mas_case(b, t_y, t_x, 200 + i, full_first=True)
-        before = dict(mas_cuda.launches)
+        before = kernel_launches()
         full = mas.maximum_path(neg, mask)
         torch.cuda.synchronize()
-        launched = {k: mas_cuda.launches[k] - before[k] for k in before}
+        launched = {k: n - before[k] for k, n in kernel_launches().items()}
         ref = mas.maximum_path_torch(neg, mask)
         e_p = (full - ref).abs().max().item()
         print(f"{card} | mas wide B={b} T_y={t_y} T_x={t_x}: route "
               f"{mas_cuda.route(t_y, t_x)}, maximum_path launched {launched}, max|err|={e_p}")
-        if launched != mas_only(mas_wide=1):
+        if launched != only_launched(mas_wide=1):
             raise AssertionError(f"mas wide: maximum_path must launch mas_wide once, {launched}")
         if e_p:
             raise AssertionError("mas_wide disagrees with the plain version")
@@ -404,10 +434,10 @@ def check_mas(card: str, main_lengths) -> dict:
     bench = {}
     for i, (b, t_y, t_x) in enumerate(BENCH_MAS_CASES):
         neg, mask, ty, tx = mas_case(b, t_y, t_x, 300 + i, full_first=True)
-        before = dict(mas_cuda.launches)
+        before = kernel_launches()
         full = mas.maximum_path(neg, mask)
         torch.cuda.synchronize()
-        launched = {k: mas_cuda.launches[k] - before[k] for k in before}
+        launched = {k: n - before[k] for k, n in kernel_launches().items()}
         e_p = (full - mas.maximum_path_torch(neg, mask)).abs().max().item()
         ms = cuda_ms(lambda: mas_cuda.mas_fused(neg, mask))
         plain_ms = cuda_ms(lambda: mas.maximum_path_torch(neg, mask), iters=2, warmup=1)
@@ -416,7 +446,7 @@ def check_mas(card: str, main_lengths) -> dict:
         print(f"{card} | mas bench B={b} T_y={t_y} T_x={t_x}: route {mas_cuda.route(t_y, t_x)}, "
               f"maximum_path launched {launched}, max|err|={e_p}; mas_fused {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} ({ms / b_ms:.1f}x the bound)")
-        if launched != mas_only(mas_fused=1):
+        if launched != only_launched(mas_fused=1):
             raise AssertionError(f"mas bench: maximum_path must launch mas_fused once, {launched}")
         if e_p:
             raise AssertionError("mas_fused disagrees with the plain version")
@@ -479,8 +509,6 @@ def synthetic_batch(hps, rng, dev, b=MAIN_B, t_y=MAIN_T_Y, t_x=MAIN_T_X, y_low=3
 
 def check_forward(card, model, batch, gen, hps):
     """Phase 3: the full-width training forward (the main path)."""
-    from vits_torch.ops import mas_cuda
-
     b = batch
 
     def run():
@@ -489,14 +517,13 @@ def check_forward(card, model, batch, gen, hps):
 
     model.train()
     with torch.no_grad():
-        for k in mas_cuda.launches:
-            mas_cuda.launches[k] = 0
+        reset_launches()
         out = run()
         torch.cuda.synchronize()
-        launches = dict(mas_cuda.launches)
+        launches = kernel_launches()
         ms = host_ms(run)
     print(f"{card} | forward launches on the main path: {launches}")
-    if launches != mas_only(mas_fused=1):
+    if launches != only_launched(mas_fused=1):
         raise AssertionError("the training forward must launch mas_fused once and mas_wide never")
     seg = hps.train.segment_size
     inter, two_b = hps.model.inter_channels, 2 * MAIN_B
@@ -527,7 +554,6 @@ def check_forward(card, model, batch, gen, hps):
 
 def check_infer(card, model, hps, rng, gen):
     """Phase 4: serving at batch 1 and 8, max_frames=1000."""
-    from vits_torch.ops import mas_cuda
     from vits_torch.text.symbols import symbols
 
     dev = model.device
@@ -541,12 +567,11 @@ def check_infer(card, model, hps, rng, gen):
         t = torch.from_numpy(rng.integers(0, 6, (bsz, t_x))).to(dev)
         sid = torch.from_numpy(rng.integers(0, len(hps.data.speakers), bsz)).to(dev)
         xl = torch.from_numpy(x_lengths).to(dev)
-        for k in mas_cuda.launches:
-            mas_cuda.launches[k] = 0
+        reset_launches()
         with torch.no_grad():
             wav, y_mask, y_lengths = model.infer(x, t, xl, sid, generator=gen, max_frames=1000)
             torch.cuda.synchronize()
-            launches = dict(mas_cuda.launches)
+            launches = kernel_launches()
             ms = host_ms(lambda: model.infer(x, t, xl, sid, generator=gen, max_frames=1000))
         if tuple(wav.shape) != (bsz, 1000 * hop, 1) or not torch.isfinite(wav).all():
             raise AssertionError(f"infer batch {bsz}: wav {tuple(wav.shape)} or not finite")
@@ -554,7 +579,7 @@ def check_infer(card, model, hps, rng, gen):
         print(f"{card} | infer batch {bsz} max_frames=1000: median {ms[0]:.2f} ms "
               f"(min {ms[1]:.2f}, max {ms[2]:.2f}, n=10), {audio_s:.2f} s of audio "
               f"(sum of y_lengths), real-time factor {ms[0] / 1e3 / audio_s:.5f}; "
-              f"MAS launches {launches}")
+              f"kernel launches {launches}")
         results[bsz] = ms
     return results
 
@@ -621,7 +646,6 @@ def check_train(card, hps, batch, seed, bf16):
     """Phase 5: the full-width GAN train step (the main path), one precision."""
     from vits_torch.models.avocodo import AvocodoDiscriminator
     from vits_torch.models.synthesizer import build_synthesizer
-    from vits_torch.ops import mas_cuda
     from vits_torch.training.step import create_train_state, train_step
 
     label = "bf16" if bf16 else "f32"
@@ -639,8 +663,7 @@ def check_train(card, hps, batch, seed, bf16):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, first = [], None
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     for i in range(n):
         t0 = time.perf_counter()
         metrics = train_step(state, tb, hps, generator=gen)
@@ -649,7 +672,7 @@ def check_train(card, hps, batch, seed, bf16):
             times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             first = {k: v.item() for k, v in metrics.items()}
-    launches = dict(mas_cuda.launches)
+    launches = kernel_launches()
     last = {k: v.item() for k, v in metrics.items()}
     peak = torch.cuda.max_memory_allocated()
     moved = [not torch.equal(a, p.detach())
@@ -664,7 +687,7 @@ def check_train(card, hps, batch, seed, bf16):
         print(f"{card} | train step {label} {tag} step: "
               + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
     print(f"{card} | train step {label}: {sum(moved)} of {len(moved)} parameter tensors moved")
-    if launches != mas_only(mas_fused=n):
+    if launches != only_launched(mas_fused=n):
         raise AssertionError(f"train step {label}: mas_fused must launch once a step")
     if not all(np.isfinite(v) for m in (first, last) for v in m.values()):
         raise AssertionError(f"train step {label}: a loss is not finite")
@@ -1002,7 +1025,6 @@ def seeded_noise(seed, shapes):
 
 def check_serve(card, config_path, seed):
     """Phase 7: the serving path at full width on the card."""
-    from vits_torch.ops import mas_cuda
     from vits_torch.serve import http_api
     from vits_torch.serve.batcher import DynamicBatcher
     from vits_torch.serve.engine import TTSEngine
@@ -1019,8 +1041,7 @@ def check_serve(card, config_path, seed):
     sr, hop = eng.sampling_rate, eng.hop
     print(f"{card} | serve engine: {Path(config_path).name}, max_frames=1000, built in "
           f"{time.perf_counter() - t0:.2f} s")
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     out = {"synthesize": {}}
 
     def audio_ok(label, audio, min_len=1):
@@ -1205,11 +1226,11 @@ def check_serve(card, config_path, seed):
           f"({js['num_samples']} samples, IPA as the engine's) {http_ms[2]:.2f} ms, as WAV "
           f"again {http_ms[3]:.2f} and {http_ms[4]:.2f} ms (a handler thread each)")
 
-    launches = dict(mas_cuda.launches)
-    print(f"{card} | serve: MAS launches over the whole phase {launches}")
+    launches = kernel_launches()
+    print(f"{card} | serve: kernel launches over the whole phase {launches}")
     if any(launches.values()):
         raise AssertionError("serving must not run MAS")
-    out["mas_launches"] = launches
+    out["launches"] = launches
     del eng
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = check_serve_card_against_cpu(card, seed)
@@ -1308,7 +1329,6 @@ def check_train_run(card, config_path, seed, root: Path):
     from vits_torch.data.dataset import DistributedBucketSampler
     from vits_torch.data.preprocess import preprocess_filelist
     from vits_torch.models.synthesizer import build_synthesizer
-    from vits_torch.ops import mas_cuda
     from vits_torch.serve.engine import TTSEngine
     from vits_torch.training.checkpoint import latest_checkpoint
     from vits_torch.training.train import build_dataset, build_discriminator
@@ -1354,18 +1374,17 @@ def check_train_run(card, config_path, seed, root: Path):
     def train(epochs, label):
         cfg["train"]["epochs"] = epochs
         cfg_path.write_text(yaml.safe_dump(cfg, allow_unicode=True))
-        for k in mas_cuda.launches:
-            mas_cuda.launches[k] = 0
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rep = train_main(["-c", str(cfg_path), "-m", model_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(mas_cuda.launches)
+        launches = kernel_launches()
         peak = torch.cuda.max_memory_allocated()
         steps = rep.state.step - rep.start_step
-        want = mas_only(mas_fused=steps + len(rep.evals) * val_batches)
+        want = only_launched(mas_fused=steps + len(rep.evals) * val_batches)
         print(f"{card} | train run {label}: steps {rep.start_step + 1}-{rep.state.step} "
               f"(epochs {rep.start_epoch}-{epochs - 1}, B={t.batch_size}, bf16 "
               f"{t.bf16_run}, segment {t.segment_size}) in {wall:.2f} s of wall; StepTimer "
@@ -1387,7 +1406,7 @@ def check_train_run(card, config_path, seed, root: Path):
                   f"{c['s']:.2f} s, " + ", ".join(f"{Path(p).name} {b / 2**20:.1f} MiB"
                                                  for p, b in c["bytes"].items()))
         if launches != want:
-            raise AssertionError(f"train run {label}: MAS launches {launches}, want {want}")
+            raise AssertionError(f"train run {label}: kernel launches {launches}, want {want}")
         if not all(np.isfinite(v) for m in (rep.first_metrics, rep.last_metrics)
                    for v in m.values()):
             raise AssertionError(f"train run {label}: a loss is not finite")
@@ -1522,14 +1541,14 @@ def check_ddp_cli(card, root: Path, run: dict):
           f"corpus and config, B={cfg['train']['batch_size']}, 2 epochs: exit 0 in {wall:.2f} s of "
           f"wall (process start, build, data, 4 steps, 2 evaluations, 2 saves); StepTimer "
           f"intervals " + ", ".join(f"{v:.2f}" for v in intervals) + f" ms; peak memory "
-          f"{peak_gib:.2f} GiB; MAS launches {launches} (want mas_fused {want}); no process "
+          f"{peak_gib:.2f} GiB; kernel launches {launches} (want mas_fused {want}); no process "
           f"left")
     for s in (2, 4):
         print(f"{card} | ddp cli step {s}: g {losses[s][0]:.4f} d {losses[s][1]:.4f}; phase 8 "
               f"g {ref[s][0]:.4f} d {ref[s][1]:.4f}; relative difference g {errs[s][0]:.3e} "
               f"d {errs[s][1]:.3e} (tolerance rtol {DDP_CLI_RTOL})")
-    if launches != mas_only(mas_fused=want):
-        raise AssertionError(f"ddp cli: MAS launches {launches}, want mas_fused {want}")
+    if launches != only_launched(mas_fused=want):
+        raise AssertionError(f"ddp cli: kernel launches {launches}, want mas_fused {want}")
     if any(e > DDP_CLI_RTOL for pair in errs.values() for e in pair):
         raise AssertionError("ddp cli: losses differ from phase 8's")
     eng = TTSEngine(str(cfg_path), checkpoint_path=str(model_dir / "eval_4"), max_frames=1000)
@@ -1656,9 +1675,8 @@ def hold_step(metrics, state, m_one, s_one, initial, lr):
 def ddp_rank_step(payload: str) -> dict:
     """Phase 9 (b), one rank (a spawned process): its rows of the global
     batch, one DDP train_step on the card; metrics, parameters, gradients and
-    this process's MAS launches."""
+    this process's kernel launches."""
     from vits_torch.graft_entry import tiny_hps
-    from vits_torch.ops import mas_cuda
     from vits_torch.parallel import mesh
     from vits_torch.training.step import replicate_state, train_step
 
@@ -1666,11 +1684,10 @@ def ddp_rank_step(payload: str) -> dict:
     data = torch.load(payload, weights_only=False)
     state = replicate_state(tiny_card_state(data, hps), hps)
     rows = mesh.rank_rows(data["batch"], mesh.process_index(), mesh.process_count(), 4)
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     metrics = train_step(state, rows, hps, noise=data["noise"])
     torch.cuda.synchronize()
-    launches = dict(mas_cuda.launches)
+    launches = kernel_launches()
     return {"metrics": {k: v.item() for k, v in metrics.items()}, "state": state_arrays(state),
             "launches": launches}
 
@@ -1712,11 +1729,11 @@ def check_ddp_two_ranks(card, root: Path, seed):
           f"on the {n_settled} of {n_all} elements whose gradient sign is settled, worst "
           f"||err|| {worst['settled']:.3e} of the update's norm per tensor (1e-3), elsewhere "
           f"max|err| {worst['rest']:.3e} (2.01 x lr = {2.01 * lr:.2e}); the ranks' parameters "
-          f"equal; MAS launches per rank {launches}")
+          f"equal; kernel launches per rank {launches}")
     if bad:
         raise AssertionError(f"ddp two ranks: {bad[:10]}")
-    if any(ln != mas_only(mas_fused=1) for ln in launches):
-        raise AssertionError(f"ddp two ranks: MAS launches {launches}, want mas_fused 1 a rank")
+    if any(ln != only_launched(mas_fused=1) for ln in launches):
+        raise AssertionError(f"ddp two ranks: kernel launches {launches}, want mas_fused 1 a rank")
     return dict(wall_s=wall, launches=launches, worst=worst)
 
 
@@ -1817,12 +1834,11 @@ def tp_card_state(data, hps, mesh_2d=None):
 def tp_rank_step(payload: str, out: str, config_path: str) -> dict:
     """Phase 10, one rank (a spawned process): the 2 x 2 mesh, its data
     row's rows, one train_step with the decoder split; its wall, peak
-    memory, MAS launches and a digest of every replicated parameter. Rank 0
+    memory, kernel launches and a digest of every replicated parameter. Rank 0
     also saves the gathered parameters and gradients to ``out``."""
     import hashlib
 
     from vits_torch.config import load_hparams
-    from vits_torch.ops import mas_cuda
     from vits_torch.parallel import mesh
     from vits_torch.training.step import train_step
 
@@ -1831,15 +1847,14 @@ def tp_rank_step(payload: str, out: str, config_path: str) -> dict:
     data = torch.load(payload, weights_only=False)
     state = tp_card_state(data, hps, m)
     rows = mesh.rank_rows(data["batch"], m.data_index, m.n_data, m.n_data * TP_ROWS)
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     metrics = train_step(state, rows, hps, noise=data["noise"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(mas_cuda.launches)
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     gathered = {}
     for side, module in (("model", state.model), ("disc", state.disc)):
@@ -1924,7 +1939,7 @@ def check_tp(card, config_path, batch, root: Path, seed):
           f"of {n_all} elements whose gradient sign is settled, worst ||err|| "
           f"{worst['settled']:.3e} of the update's norm per tensor (1e-3), elsewhere max|err| "
           f"{worst['rest']:.3e} (2.01 x lr); model peers' replicated parameters "
-          f"{'equal bit for bit' if not peers else 'DIFFER'}; MAS launches per rank {launches}")
+          f"{'equal bit for bit' if not peers else 'DIFFER'}; kernel launches per rank {launches}")
     print(f"{card} | tp step wall per rank "
           + ", ".join(f"{r['wall_s'] * 1e3:.2f} ms" for r in ranks)
           + "; peak memory per rank "
@@ -1933,8 +1948,8 @@ def check_tp(card, config_path, batch, root: Path, seed):
           f"{one_peak / 2**30:.2f} GiB (host clock, synchronized; first step of each process)")
     if bad:
         raise AssertionError(f"tp: {bad[:10]}")
-    if any(ln != mas_only(mas_fused=1) for ln in launches):
-        raise AssertionError(f"tp: MAS launches {launches}, want mas_fused 1 a rank")
+    if any(ln != only_launched(mas_fused=1) for ln in launches):
+        raise AssertionError(f"tp: kernel launches {launches}, want mas_fused 1 a rank")
     return dict(launches=launches, worst=worst, wall_s=[r["wall_s"] for r in ranks],
                 peak_bytes=[r["peak_bytes"] for r in ranks], dryrun_s=dry_s)
 
@@ -1950,7 +1965,6 @@ def check_convergence_tool(card, root: Path, model=None):
     entries (a rehearsal's tiny widths)."""
     from vits_torch.config import load_hparams
     from vits_torch.data.dataset import DistributedBucketSampler
-    from vits_torch.ops import mas_cuda
     from vits_torch.training.train import build_dataset
 
     spec = importlib.util.spec_from_file_location("convergence_torch",
@@ -1963,13 +1977,12 @@ def check_convergence_tool(card, root: Path, model=None):
     gen_s = time.perf_counter() - t0
     cfg = tool.make_config(work, CONV_EPOCHS, model=model, train={
         "eval_interval": CONV_INTERVAL, "save_interval": CONV_INTERVAL})
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     report = tool.train(work, CONV_EPOCHS, config=cfg)
     train_s = time.perf_counter() - t0
-    launches = dict(mas_cuda.launches)
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     rows = tool.analyze(work)
@@ -1983,7 +1996,7 @@ def check_convergence_tool(card, root: Path, model=None):
           f"{min(ms):.2f}, max {max(ms):.2f}, n={len(ms)}), loader waits "
           f"{sum(report.data_wait_s):.2f} s over {len(report.data_wait_s)} batches, peak "
           f"{peak / 2**30:.2f} GiB; loss/g/total {report.first_metrics['loss/g/total']:.4f} -> "
-          f"{report.last_metrics['loss/g/total']:.4f}; MAS launches {launches}; analyze + "
+          f"{report.last_metrics['loss/g/total']:.4f}; kernel launches {launches}; analyze + "
           f"synth {rest_s:.2f} s")
     for r in rows:
         print(f"{card} | convergence tool analyze: " + json.dumps(r))
@@ -2002,8 +2015,8 @@ def check_convergence_tool(card, root: Path, model=None):
         raise AssertionError(f"convergence tool: analyze {rows}")
     if summary["n"] != 8 or not np.isfinite(summary["mean_sim"]):
         raise AssertionError(f"convergence tool: synth {summary}")
-    if launches != mas_only(mas_fused=steps + val_batches):
-        raise AssertionError(f"convergence tool: MAS launches {launches}, want one a train "
+    if launches != only_launched(mas_fused=steps + val_batches):
+        raise AssertionError(f"convergence tool: kernel launches {launches}, want one a train "
                              f"step and one a validation batch ({steps} + {val_batches})")
     return dict(launches=launches, step_ms=ms, steps=steps)
 
@@ -2022,7 +2035,6 @@ def check_migration(card, config_path, batch, seed, root: Path):
     through the converter's command line, served and fine-tuned."""
     from vits_torch.config import load_hparams
     from vits_torch.models.synthesizer import build_synthesizer
-    from vits_torch.ops import mas_cuda
     from vits_torch.serve.engine import TTSEngine
     from vits_torch.training.checkpoint import load_eval_params, merge_compatible
     from vits_torch.training.step import create_train_state, train_step
@@ -2064,8 +2076,7 @@ def check_migration(card, config_path, batch, seed, root: Path):
             or not disc_path.is_file():
         raise AssertionError(f"migrate: the converter failed\n{proc.stdout}\n{proc.stderr}")
 
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     eng = TTSEngine(config_path, checkpoint_path=str(eval_path), max_frames=1000)
     got = eng.model.state_dict()
     same = list(got) == list(src_g) and all(torch.equal(got[k], v) for k, v in src_g.items())
@@ -2087,10 +2098,10 @@ def check_migration(card, config_path, batch, seed, root: Path):
         print(f"{card} | migrate serve {lang}: {len(audio) / eng.sampling_rate:.3f} s of "
               f"audio, median {ms[0]:.2f} ms (n=3; host clock); against the source state "
               f"dict's engine: max|err| {rel:.3e} of its peak")
-    serve_launches = dict(mas_cuda.launches)
+    serve_launches = kernel_launches()
     print(f"{card} | migrate serve eval_{MIGRATE_STEP}: strict load, state_dict equal to the "
           f"source generator bit for bit: {same}; lengths equal: {lengths_equal}, worst "
-          f"{worst_rel:.3e} of the peak (tolerance {BATCH_VS_SOLO_REL}); MAS launches "
+          f"{worst_rel:.3e} of the peak (tolerance {BATCH_VS_SOLO_REL}); kernel launches "
           f"{serve_launches}")
     if not same or not lengths_equal or worst_rel > BATCH_VS_SOLO_REL \
             or any(serve_launches.values()):
@@ -2123,8 +2134,7 @@ def check_migration(card, config_path, batch, seed, root: Path):
     n = MIGRATE_WARMUP + MIGRATE_TIMED
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     times, metrics = [], []
     for i in range(n):
         t0 = time.perf_counter()
@@ -2133,7 +2143,7 @@ def check_migration(card, config_path, batch, seed, root: Path):
         if i >= MIGRATE_WARMUP:
             times.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: v.item() for k, v in m.items()})
-    tune_launches = dict(mas_cuda.launches)
+    tune_launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     moved = [not torch.equal(a, p.detach())
              for a, p in zip(start, (p for m in (model, disc) for p in m.parameters()))]
@@ -2149,7 +2159,7 @@ def check_migration(card, config_path, batch, seed, root: Path):
     for tag, m in (("first", metrics[0]), ("last", metrics[-1])):
         print(f"{card} | migrate fine-tune {tag} step: "
               + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
-    if tune_launches != mas_only(mas_fused=n):
+    if tune_launches != only_launched(mas_fused=n):
         raise AssertionError("migrate fine-tune: mas_fused must launch once a step")
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError("migrate fine-tune: a loss is not finite")
@@ -2210,8 +2220,7 @@ def check_long_text(card, config_path, seed):
     n = LONG_WARMUP + LONG_TIMED
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in mas_cuda.launches:
-        mas_cuda.launches[k] = 0
+    reset_launches()
     times, metrics = [], []
     synthesizer.maximum_path = recording
     try:
@@ -2224,7 +2233,7 @@ def check_long_text(card, config_path, seed):
             metrics.append({k: v.item() for k, v in m.items()})
     finally:
         synthesizer.maximum_path = inner
-    launches = dict(mas_cuda.launches)
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     recorded = sum(t.numel() * t.element_size() for c in calls for t in c)
     ms = (float(np.median(times)), min(times), max(times))
@@ -2245,7 +2254,7 @@ def check_long_text(card, config_path, seed):
         err = max(err, (path - mas.maximum_path_torch(neg, mask)).abs().max().item())
     print(f"{card} | long text: {len(calls)} maximum_path calls at ({LONG_B}, {t_y}, {t_x}) "
           f"against maximum_path_torch on the same inputs: max|err| {err}")
-    if launches != mas_only(mas_wide=n):
+    if launches != only_launched(mas_wide=n):
         raise AssertionError(f"long text: mas_wide must launch once a step, {launches}")
     if len(calls) != n or err:
         raise AssertionError("long text: the step's path is not the plain version's")
@@ -2305,7 +2314,7 @@ BENCH_TIMEOUT_S = 420  # phase 15: each script's limit; ~1 minute each on an H10
 def run_bench_script(card, script, args, jax_script, n_lines) -> tuple[list[dict], dict]:
     """Runs one benchmark script from the repo root; its JSON lines (held
     to the JAX script's keys, every number finite and > 0) and its last
-    stderr record of train steps and MAS launches."""
+    stderr record of train steps and kernel launches."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, script, *args], cwd=ROOT, capture_output=True,
                           text=True, timeout=BENCH_TIMEOUT_S)
@@ -2330,12 +2339,12 @@ def run_bench_script(card, script, args, jax_script, n_lines) -> tuple[list[dict
             number = isinstance(v, (int, float)) and not isinstance(v, bool)
             if v is None or number and not (np.isfinite(v) and v > 0):
                 raise AssertionError(f"bench: {script}'s {k} is {v}")
-    print(f"{card} | bench {script}: {counted['train_steps']} train steps, MAS launches "
-          f"{counted['mas_launches']}")
-    if counted["mas_launches"] != mas_only(mas_fused=counted["train_steps"]) \
+    print(f"{card} | bench {script}: {counted['train_steps']} train steps, kernel launches "
+          f"{counted['launches']}")
+    if counted["launches"] != only_launched(mas_fused=counted["train_steps"]) \
             or not counted["train_steps"]:
         raise AssertionError(f"bench: {script} must launch mas_fused once a train step")
-    return lines, counted["mas_launches"]
+    return lines, counted["launches"]
 
 
 def check_bench(card, tmp: Path):
@@ -2375,6 +2384,148 @@ def check_bench(card, tmp: Path):
     _, launches["bench_matrix_torch"] = run_bench_script(card, "bench_matrix_torch.py", [],
                                                          "bench_matrix.py", 6)
     return {"launches": launches}
+
+
+# phase 16: (cin_g, cout_g, groups, T_in) of the scale discriminator's grouped
+# convs at the ljs_mbistft.train cell (2 x 64 rows of 8192 samples)
+MSD_GROUPED = [(4, 16, 4, 8192), (4, 16, 16, 2048), (4, 16, 64, 512), (4, 4, 256, 128)]
+MSD_ROWS, MSD_K, MSD_STRIDE, MSD_PAD = 128, 41, 4, 20
+
+
+def grouped_dgrad_work(rows, cin_g, cout_g, groups, t_in) -> tuple[int, int]:
+    """(multiply-adds, bytes) of one input gradient: every tap that meets the
+    input (the forward's own products), each grad_out, grad_in and weight
+    value moved once."""
+    t_out = (t_in + 2 * MSD_PAD - MSD_K) // MSD_STRIDE + 1
+    pos = MSD_STRIDE * np.arange(t_out)[:, None] - MSD_PAD + np.arange(MSD_K)[None]
+    taps = int(((pos >= 0) & (pos < t_in)).sum())
+    macs = rows * groups * cin_g * cout_g * taps
+    n_bytes = 4 * (rows * groups * (cout_g * t_out + cin_g * t_in)
+                   + groups * cout_g * cin_g * MSD_K)
+    return macs, n_bytes
+
+
+def check_grouped_dgrad(card, tmp: Path) -> dict:
+    """Phase 16: the grouped-conv input-gradient kernel at the cell's shapes,
+    then on the cell's path (``pitchless_step``)."""
+    from torch.nn import functional as F
+
+    from vits_torch.ops import grouped_conv as gc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tf32 = torch.backends.cudnn.allow_tf32
+    s, p, k = MSD_STRIDE, MSD_PAD, MSD_K
+    rows, step = {}, {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for cin_g, cout_g, groups, t_in in MSD_GROUPED:
+        t_out = (t_in + 2 * p - k) // s + 1
+        x = torch.randn(MSD_ROWS, groups * cin_g, t_in, device=dev, generator=gen)
+        w = torch.randn(groups * cout_g, cin_g, k, device=dev, generator=gen) / (cin_g * k) ** 0.5
+        bias = torch.randn(groups * cout_g, device=dev, generator=gen)
+        go = torch.randn(MSD_ROWS, groups * cout_g, t_out, device=dev, generator=gen)
+        args = (t_in, s, p, groups)
+        got = gc.grouped_dgrad_cuda(go, w, *args)
+        torch.backends.cudnn.allow_tf32 = False
+        ref = torch.nn.grad.conv1d_input(got.shape, w, go, s, p, 1, groups)
+        scale = torch.nn.grad.conv1d_input(got.shape, w.abs(), go.abs(), s, p, 1, groups)
+        torch.backends.cudnn.allow_tf32 = tf32
+        unit = cout_g * -(-k // s) * 2.0 ** -24  # the summation bound a magnitude
+        err = float(((got - ref).abs() / (unit * scale).clamp_min(1e-30)).max())
+        ms = cuda_ms(lambda: gc.grouped_dgrad_cuda(go, w, *args))
+        plain_ms = cuda_ms(lambda: gc.grouped_dgrad_torch(go, w, *args))
+        torch.backends.cudnn.allow_tf32 = False
+        library_ms = cuda_ms(lambda: torch.nn.grad.conv1d_input(got.shape, w, go, s, p, 1, groups))
+        torch.backends.cudnn.allow_tf32 = tf32
+        forward_ms = cuda_ms(lambda: F.conv1d(x, w, bias, s, p, 1, groups))
+        wgrad_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            go, x, w, [w.shape[0]], [s], [p], [1], False, [0], groups, [False, True, True]))
+        macs, n_bytes = grouped_dgrad_work(MSD_ROWS, cin_g, cout_g, groups, t_in)
+        b_ms, b_by = bound_ms(n_bytes, 2 * macs)
+        name = f"{groups * cin_g}->{groups * cout_g}/g{groups}@{t_in}"
+        print(f"{card} | grouped_dgrad {name} x {MSD_ROWS} rows: {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, {2 * macs / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB; "
+              f"{b_ms / ms:.1%} of it), plain {plain_ms:.4f}, library (TF32 off) "
+              f"{library_ms:.4f}; cuDNN forward {forward_ms:.4f}, weight gradient "
+              f"{wgrad_ms:.4f}; error against the library {err:.3f} x the f32 bound")
+        if not err <= 2.0:
+            raise AssertionError(f"grouped_dgrad {name}: {err:.3f} x the f32 summation bound")
+        rows[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "forward_ms": forward_ms, "wgrad_ms": wgrad_ms,
+                      "err_over_bound": err}
+        for key in step:
+            step[key] += 2 * rows[name][key]  # a pitchless step: the D and the G backward
+    print(f"{card} | grouped_dgrad, the layers timed apart, twice (a pitchless step's 2 passes "
+          f"x 4 layers): {step['ms']:.4f} ms against the bound's {step['bound_ms']:.4f} ms, "
+          f"the plain version's {step['plain_ms']:.4f} ms and the library's "
+          f"{step['library_ms']:.4f} ms")
+    return {"rows": rows, "step": step, **pitchless_step(card, tmp)}
+
+
+def pitchless_step(card, tmp: Path) -> dict:
+    """Phase 16's main path: one pitchless ``train_step`` at the
+    ljs_mbistft.train cell's widths (its configuration's generator, the
+    published MPD + MSD, B=64, segment 8192; T_y 600, T_x 384) after a
+    warm-up step, under torch.profiler. Every kernel count set to 0 first; the
+    step must launch grouped_dgrad 8 times (4 layers x the D and the G
+    backward), and the trace must hold 8 grouped_dgrad_kernel events. cuDNN's
+    grouped direct dgrad, which the MSD's layers took before, is printed for
+    the record: the step's other grouped convs (the SDP's depthwise DDSConv)
+    may still take it. Returns the launches and the kernel's device time in
+    that step."""
+    from vits_torch.config import load_hparams
+    from vits_torch.models.synthesizer import build_synthesizer
+    from vits_torch.ops.stft import spectrogram
+    from vits_torch.training.step import create_train_state, train_step
+    from vits_torch.training.train import build_discriminator
+
+    hps = load_hparams(str(ROOT / "perfbench" / "configs" / "ljs_mbistft_train.json"))
+    dev = torch.device("cuda")
+    d = hps.data
+    b, t_x, t_y = hps.train.batch_size, 384, 600
+    g = torch.Generator(device=dev).manual_seed(16)
+    y_len = torch.randint(501, t_y + 1, (b,), generator=g, device=dev)
+    y_len[0] = t_y
+    x_len = (0.32 * y_len).long()
+    n = torch.arange(t_y * d.hop_length, device=dev, dtype=torch.float32)
+    f0 = 90.0 + 210.0 * torch.rand((b, 1), generator=g, device=dev)
+    wav = 0.4 * torch.sin(2 * np.pi * f0 * n / d.sampling_rate) \
+        + 0.02 * torch.randn((b, n.numel()), generator=g, device=dev)
+    wav = wav * (n[None] < (y_len[:, None] * d.hop_length))
+    x = torch.randint(1, 71, (b, t_x), generator=g, device=dev)
+    x[:, ::2] = 0
+    x = x * (torch.arange(t_x, device=dev)[None] < x_len[:, None])
+    batch = {"x": x, "x_lengths": x_len, "spec_lengths": y_len, "wav": wav[:, :, None],
+             "spec": spectrogram(wav, d.filter_length, d.hop_length, d.win_length)}
+    torch.manual_seed(16)
+    state = create_train_state(build_synthesizer(hps, device=dev),
+                               build_discriminator(hps, False, dev), hps, steps_per_epoch=200)
+    train_step(state, batch, hps, generator=g)  # warm-up: the builds, cuDNN's plans
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        metrics = train_step(state, batch, hps, generator=g)
+        torch.cuda.synchronize()
+    launches = kernel_launches()
+    prof.export_chrome_trace(str(tmp / "pitchless_step.json"))
+    events = json.loads((tmp / "pitchless_step.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e["dur"] for e in kernels if "grouped_dgrad_kernel" in e["name"]]
+    direct = [e["dur"] for e in kernels if "dgrad2d_grouped_direct" in e["name"]]
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3
+    ms = sum(ours) / 1e3
+    print(f"{card} | grouped_dgrad: one pitchless train_step at the cell's widths (B={b}, "
+          f"T_y {t_y}, segment {hps.train.segment_size}, published MPD + MSD), loss/d/total "
+          f"{float(metrics['loss/d/total']):.4f}: kernel launches {launches}; "
+          f"{len(ours)} grouped_dgrad_kernel events, {ms:.4f} ms of the step's "
+          f"{busy_ms:.3f} ms of kernels; cuDNN's grouped direct dgrad {len(direct)} events, "
+          f"{sum(direct) / 1e3:.4f} ms")
+    if launches["grouped_dgrad"] != 8 or len(ours) != 8:
+        raise AssertionError(f"grouped_dgrad: a pitchless step launched {launches} and traced "
+                             f"{len(ours)} kernel events, not 8")
+    del state
+    torch.cuda.empty_cache()
+    return {"step_launches": launches, "step_ms": ms, "step_kernels_ms": busy_ms,
+            "step_cudnn_direct_dgrad_ms": sum(direct) / 1e3}
 
 
 def main() -> int:
@@ -2442,6 +2593,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         bench = check_bench(card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        grouped = check_grouped_dgrad(card, Path(tmp))
     left = stop_descendants()
     print(f"{card} | processes left running by the phases: "
           f"{left if left else 'none'}")
@@ -2455,7 +2608,7 @@ def main() -> int:
                 "f32": train[False]["launches"][name] / (TRAIN_WARMUP + TRAIN_TIMED),
             },
             "launches_per_forward": forward_launches[name],
-            "launches_in_serve": serve["mas_launches"][name],
+            "launches_in_serve": serve["launches"][name],
             # phase 8: the train CLI, 4 steps + 2 evaluations, then resumed for 4 more
             "launches_in_train_run": {k: run[k]["launches"][name] for k in ("train", "resume")},
             # phase 9: the CLI under torchrun (world 1, 4 steps + 2 evaluations) and each
@@ -2510,6 +2663,18 @@ def main() -> int:
         # for the record: route keeps mas_fused at the main path's shape
         "at_main_against_fused": dict(zip(("ms", "fused_ms"), mas_rows["wide_at_main"])),
         **on_paths("mas_wide"),
+    })
+    # no TPU kernel: the scale discriminator's grouped input gradient (phase 16);
+    # launches and ms from one traced pitchless train step at the cell's widths,
+    # bound, plain and library a step from the layers timed apart, twice
+    kernels.append({
+        "name": "grouped_dgrad", "route": "cuda", "source": "vits_torch/csrc/grouped_conv.cu",
+        "replaces": None, "launches": grouped["step_launches"]["grouped_dgrad"],
+        "ms": grouped["step_ms"], "step_kernels_ms": grouped["step_kernels_ms"],
+        "step_cudnn_direct_dgrad_ms": grouped["step_cudnn_direct_dgrad_ms"],
+        **{key: grouped["step"][key] for key in ("bound_ms", "plain_ms", "library_ms")},
+        "layers_apart_ms": grouped["step"]["ms"], "per": "pitchless train step",
+        "at": grouped["rows"], **on_paths("grouped_dgrad"),
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -266,7 +266,10 @@ def test_train_cli_trains_two_steps(tmp_path):
                         save_interval=2, profile_step=1, seed=3)
     config = tmp_path / "cli.json"
     config.write_text(json.dumps(cfg))
-    model_dir = tmp_path / "run"
+    # the run's logger is process-wide and named by this directory: under
+    # "run" it would keep tests/test_train_loop.py's later run in the same
+    # worker from writing a train.log of its own
+    model_dir = tmp_path / "ljs_run"
     report = cli.main(["-c", str(config), "-m", str(model_dir), "--device", "cpu"])
     assert report.state.step == 2 and len(report.evals) == 1
     assert {"loss/g/subband", "loss/g/total", "loss/d/total"} <= set(report.last_metrics)

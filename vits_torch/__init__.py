@@ -11,9 +11,11 @@ Conventions:
   * every random site takes its noise explicitly or draws it from a given
     ``torch.Generator``
   * entry points run on ``cuda`` unless the caller passes ``device="cpu"``
-  * the one hand-written kernel (MAS, ``csrc/mas.cu``) is built with ``nvcc``
-    at first use; CPU tensors take its plain PyTorch version (the host MAS in
-    C++, ``csrc/mas_host.cpp``, is an oracle that no path calls)
+  * the hand-written kernels (MAS, ``csrc/mas.cu``; the scale
+    discriminator's grouped input gradient, ``csrc/grouped_conv.cu``) are
+    built with ``nvcc`` at first use; CPU tensors take their plain PyTorch
+    versions (the host MAS in C++, ``csrc/mas_host.cpp``, is an oracle that
+    no path calls)
   * several cards: one process a card under ``torchrun``, DDP over NCCL
     (``parallel/mesh.py``)
 """

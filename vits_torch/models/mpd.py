@@ -10,7 +10,9 @@ MB-iSTFT-VITS trains its generator against.
   leaky_relu(0.1); ``conv_post`` 1024 -> 1, kernel (3, 1), padding (1, 0).
 - ``DiscriminatorS``: ``Conv1d`` 1 -> 16 (k15), 16 -> 64 (k41, s4, g4), 64 ->
   256 (g16), 256 -> 1024 (g64), 1024 -> 1024 (g256), 1024 -> 1024 (k5), each
-  followed by leaky_relu(0.1); ``conv_post`` 1024 -> 1, kernel 3.
+  followed by leaky_relu(0.1); ``conv_post`` 1024 -> 1, kernel 3. The four
+  grouped convs are ``GroupedConv1d``: the same forward, their input
+  gradient from ``ops/grouped_conv.py`` (a CUDA kernel on the card).
 - ``MultiPeriodDiscriminator``: the scale discriminator, then the period
   discriminators of 2, 3, 5, 7 and 11.
 
@@ -27,7 +29,9 @@ channels (the test and probe size the configuration's
 ``discriminator_size: probe`` names).
 
 Spans (``utils/profiling.py``): ``vits.disc.msd`` around the scale
-discriminator, ``vits.disc.mpd`` around the five period discriminators.
+discriminator, ``vits.disc.mpd`` around the five period discriminators;
+``vits.disc.grouped_dgrad`` around each grouped conv's backward (counter
+``disc.grouped_dgrad``).
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from vits_torch.models.modules import LRELU_SLOPE, conv1d, weight_norm
+from vits_torch.models.modules import LRELU_SLOPE, Conv1d, _in_dtype_of, conv1d, weight_norm
 from vits_torch.models.synthesizer import resolve_device
+from vits_torch.ops.grouped_conv import GroupedConv1dFunction
 from vits_torch.utils.profiling import span
 
 PERIODS = (2, 3, 5, 7, 11)
@@ -52,6 +57,28 @@ MPD_PROBE = (4, 8, 16, 32, 32)
 def _conv2d(in_ch: int, out_ch: int, kernel: int, stride: int, padding: int) -> nn.Module:
     """A weight-normed ``Conv2d`` of kernel (kernel, 1) along the folded time."""
     return weight_norm(nn.Conv2d(in_ch, out_ch, (kernel, 1), (stride, 1), padding=(padding, 0)))
+
+
+class GroupedConv1d(Conv1d):
+    """The scale discriminator's grouped conv: ``Conv1d``'s forward (cuDNN on
+    the card), its input gradient ``ops/grouped_conv.py::grouped_dgrad`` (the
+    kernel on the card, the plain version on the CPU), its weight and bias
+    gradients cuDNN's. It computes in its input's dtype as ``Conv1d`` does,
+    and under autocast casts its operands as autocast casts ``F.conv1d``'s
+    (``grouped_dgrad`` widens half gradients to float32 for the kernel)."""
+
+    def _conv_forward(self, input, weight, bias):
+        return _in_dtype_of(input, weight, bias, self._grouped)
+
+    def _grouped(self, x, weight, bias):
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            dt = torch.get_autocast_dtype(dev)
+            x, weight = x.to(dt), weight.to(dt)
+            bias = None if bias is None else bias.to(dt)
+        with torch.autocast(dev, enabled=False):
+            return GroupedConv1dFunction.apply(x, weight, bias, self.stride[0],
+                                               self.padding[0], self.groups)
 
 
 class DiscriminatorP(nn.Module):
@@ -92,7 +119,8 @@ class DiscriminatorS(nn.Module):
         kernels, strides, pads = (15, 41, 41, 41, 41, 5), (1, 4, 4, 4, 4, 1), (7, 20, 20, 20, 20, 2)
         ins = (1, *channels[:-1])
         self.convs = nn.ModuleList(
-            conv1d(i, o, k, stride=s, groups=g, padding=p, use_weight_norm=True)
+            weight_norm(GroupedConv1d(i, o, k, stride=s, groups=g, padding=p)) if g > 1
+            else conv1d(i, o, k, stride=s, padding=p, use_weight_norm=True)
             for i, o, k, s, g, p in zip(ins, channels, kernels, strides, groups, pads))
         self.conv_post = conv1d(channels[-1], 1, 3, padding=1, use_weight_norm=True)
 

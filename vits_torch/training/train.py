@@ -62,7 +62,7 @@ from vits_torch.data.dataset import (
 from vits_torch.models.avocodo import AvocodoDiscriminator, probe_discriminator
 from vits_torch.models.mpd import MultiPeriodDiscriminator
 from vits_torch.models.synthesizer import build_synthesizer, resolve_device
-from vits_torch.ops import mas_cuda
+from vits_torch.ops import kernel_launches
 from vits_torch.parallel import mesh
 from vits_torch.training.checkpoint import (
     latest_checkpoint,
@@ -328,7 +328,7 @@ def run(hps, initial_run: bool = False, device=None) -> RunReport:
     report.step_s = list(timer.times)
     logger.info(
         "run done at step %d; step intervals %s ms; kernel launches in this process %s%s",
-        state.step, ", ".join(f"{t * 1e3:.2f}" for t in report.step_s), dict(mas_cuda.launches),
+        state.step, ", ".join(f"{t * 1e3:.2f}" for t in report.step_s), kernel_launches(),
         f"; peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
         if device.type == "cuda" else "",
     )
